@@ -1,0 +1,9 @@
+"""PyTorch/CUDA port of cometbft_tpu's Ed25519 commit-verification path.
+
+Runs verify_commit / verify_commit_light / DeferredSigBatch -> RLC batch
+verify on one NVIDIA card (Hopper, sm_90a), with a hand-written CUDA
+kernel for each step the JAX package runs as a Pallas TPU kernel.  The
+package imports torch, numpy and the standard library only; its entry
+points take `device=` (default "cuda") and run every kernel's plain
+torch version when the caller passes device="cpu".
+"""

@@ -1,0 +1,56 @@
+"""State carried between the JAX package and the port.
+
+This system runs no model; its state is the packed batch (the numpy
+arrays of crypto/ed25519.pack_rlc and pack_batch, byte-identical in both
+packages) and a validator set's A-side window tables (ATableCache
+entries: (17, 4, 20, K) int32 plus an all-decompressed-ok flag).  These
+functions turn the JAX package's numpy forms into the port's tensors on
+a given device; uint32 words travel as their int32 bit patterns.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _tensor(arr, dtype) -> torch.Tensor:
+    """numpy -> CPU tensor sharing memory where it can (a read-only or
+    strided array is copied once)."""
+    return torch.from_numpy(np.require(arr, dtype=dtype,
+                                       requirements=["C", "W"]))
+
+
+def words_from_numpy(words: np.ndarray, device) -> torch.Tensor:
+    """(8, W) uint32 little-endian words -> int32 bit-pattern tensor."""
+    arr = np.require(words, dtype=np.uint32, requirements=["C"])
+    return _tensor(arr.view(np.int32), np.int32).to(device)
+
+
+def packed_from_numpy(packed, device):
+    """pack_rlc's (a_words, r_words, a_mag, a_neg, r_mag, r_neg) -> the
+    argument tuple of ops/ed25519.rlc_verify_kernel on `device`."""
+    a_words, r_words, a_mag, a_neg, r_mag, r_neg = packed
+    return (words_from_numpy(a_words, device),
+            words_from_numpy(r_words, device),
+            _tensor(a_mag, np.int32).to(device),
+            _tensor(a_neg, bool).to(device),
+            _tensor(r_mag, np.int32).to(device),
+            _tensor(r_neg, bool).to(device))
+
+
+def batch_from_numpy(a_words, r_words, s_limbs, h_limbs, device):
+    """pack_batch's limbs-first arrays -> ops/ed25519.verify_kernel's
+    arguments on `device`."""
+    return (words_from_numpy(a_words, device),
+            words_from_numpy(r_words, device),
+            _tensor(s_limbs, np.int32).to(device),
+            _tensor(h_limbs, np.int32).to(device))
+
+
+def a_table_from_numpy(a_tab, a_ok, device):
+    """An A-side table built by either package ((17, 4, 20, K) int32 and
+    its ok flag, as numpy) -> the (table, ok) entry the port's
+    rlc_verify_kernel_cached_a takes."""
+    return (_tensor(a_tab, np.int32).to(device),
+            torch.tensor(bool(np.asarray(a_ok)), device=device))

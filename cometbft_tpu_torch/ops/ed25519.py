@@ -1,0 +1,273 @@
+"""Ed25519 batch verification on torch tensors: point arithmetic, the
+RLC whole-batch program and the per-signature program — the port's
+counterpart of `cometbft_tpu.ops.ed25519`.
+
+Layout is the JAX package's: field elements (20, W), points (4, 20, W),
+window tables (17, 4, 20, W), the batch axis minor.  The four hot steps
+of the RLC program go through the kernel wrappers of
+ops/cuda_decompress.py (K1) and ops/cuda_msm.py (K2-K4): on a CUDA
+tensor each launches its hand-written kernel, on a CPU tensor it runs
+its plain version.  Everything else here is plain torch on whatever
+device its inputs live on.
+
+Verification follows ZIP-215: non-canonical y accepted, cofactored
+equation, s < L enforced host-side (crypto/ed25519.parse_signature).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import cuda_decompress, cuda_msm
+from . import fe
+from ..crypto import ed25519_ref as ref
+
+_X, _Y, _Z, _T = 0, 1, 2, 3
+
+
+# ---------------------------------------------------------------------------
+# point representation: (4, 20, ...batch), coords on axis 0
+# ---------------------------------------------------------------------------
+
+def identity_point(batch_shape, device) -> torch.Tensor:
+    one = torch.as_tensor(fe.ONE_LIMBS, dtype=torch.int32, device=device)
+    one = one.reshape((fe.NLIMBS,) + (1,) * len(batch_shape)).expand(
+        (fe.NLIMBS,) + tuple(batch_shape))
+    zero = torch.zeros_like(one)
+    return torch.stack([zero, one, one, zero], dim=0)
+
+
+def point_double(p, with_t: bool = True):
+    """dbl-2008-hwcd for a=-1: 4M+4S (3M+4S without T)."""
+    x, y, z = p[_X], p[_Y], p[_Z]
+    a = fe.sqr(x)
+    b = fe.sqr(y)
+    c = fe.mul_word(fe.sqr(z), 2)
+    h = fe.add(a, b)
+    e = fe.sub(h, fe.sqr(fe.add(x, y)))
+    g = fe.sub(a, b)
+    f = fe.add(c, g)
+    t = fe.mul(e, h) if with_t else torch.zeros_like(x)
+    return torch.stack([fe.mul(e, f), fe.mul(g, h), fe.mul(f, g), t], dim=0)
+
+
+def to_cached(p):
+    """Extended -> cached (Y+X, Y-X, 2d*T, 2Z): one mul."""
+    return torch.stack([fe.add(p[_Y], p[_X]),
+                        fe.sub(p[_Y], p[_X]),
+                        fe.mul(p[_T], fe.const(fe.D2_LIMBS, p[_T])),
+                        fe.mul_word(p[_Z], 2)], dim=0)
+
+
+def add_cached(p, q):
+    """add-2008-hwcd-3 with q pre-cached: 8M, complete for a=-1."""
+    a = fe.mul(fe.sub(p[_Y], p[_X]), q[1])
+    b = fe.mul(fe.add(p[_Y], p[_X]), q[0])
+    c = fe.mul(p[_T], q[2])
+    d = fe.mul(p[_Z], q[3])
+    e = fe.sub(b, a)
+    f = fe.sub(d, c)
+    g = fe.add(d, c)
+    h = fe.add(b, a)
+    return torch.stack([fe.mul(e, f), fe.mul(g, h), fe.mul(f, g),
+                        fe.mul(e, h)], dim=0)
+
+
+def point_add(p, q):
+    """Extended + extended."""
+    return add_cached(p, to_cached(q))
+
+
+def point_neg(p):
+    return torch.stack([fe.neg(p[_X]), p[_Y], p[_Z], fe.neg(p[_T])], dim=0)
+
+
+def point_is_identity(p):
+    """[X:Y:Z:T] == identity <=> X == 0 and Y == Z (Z != 0 always)."""
+    return fe.is_zero(p[_X]) & fe.eq(p[_Y], p[_Z])
+
+
+# ---------------------------------------------------------------------------
+# decompression (ZIP-215: no canonical-y check) — kernel K1
+# ---------------------------------------------------------------------------
+
+def decompress(enc_words: torch.Tensor):
+    """(8, W) int32 bit patterns of LE words -> ((4, 20, W), (W,) ok)."""
+    return cuda_decompress.decompress(enc_words)
+
+
+# ---------------------------------------------------------------------------
+# shared tree / table helpers
+# ---------------------------------------------------------------------------
+
+def _tree_reduce(pts, target: int = 1):
+    """(4, 20, W) extended points -> (4, 20, target) by pairwise adds;
+    odd widths carry the leftover lane."""
+    while pts.shape[-1] > target:
+        w = pts.shape[-1]
+        half = w // 2
+        left = point_add(pts[..., :half], pts[..., half:2 * half])
+        if w % 2:
+            left = torch.cat([left, pts[..., 2 * half:]], dim=-1)
+        pts = left
+    return pts
+
+
+def _table17(p):
+    """Rows k*P for k=0..16, extended coords, (17, 4, 20, W)."""
+    p_cached = to_cached(p)
+    rows = [identity_point(p.shape[2:], p.device), p]
+    cur = p
+    for _ in range(15):
+        cur = add_cached(cur, p_cached)
+        rows.append(cur)
+    return torch.stack(rows, dim=0)
+
+
+def build_a_tables(enc_words):
+    """Decompress one MSM side (K1) and build its negated 17-row window
+    tables (K2): (8, W) -> ((17, 4, 20, W), all-decompressed-ok).  The
+    A side's result is what the ATableCache keeps."""
+    pt, ok = decompress(enc_words)
+    return cuda_msm.table17_neg(pt), ok.all()
+
+
+def _msm_scan(tab, mags, negs):
+    """The MSM value as one (4, 20, 1) point: K3's per-block partials
+    tree-reduced (the counterpart of the JAX package's _msm_scan)."""
+    return _tree_reduce(cuda_msm.msm_window_major(tab, mags, negs), 1)
+
+
+# ---------------------------------------------------------------------------
+# random-linear-combination batch verification
+# ---------------------------------------------------------------------------
+#
+#   [8] * ( sum_i z_i*s_i * B  -  sum_i (z_i*h_i)*A_i  -  sum_i z_i*R_i ) == 0
+#
+# with z_i random 128-bit scalars; the host (crypto/ed25519.pack_rlc)
+# aggregates repeated pubkeys, puts the fixed-base term in A slot 0 as
+# (-B, c) and recodes every scalar into signed 5-bit digits.  The device
+# runs two Straus MSMs over negated tables and one fold.
+
+def rlc_verify_kernel(a_words, r_words, a_mag, a_neg, r_mag, r_neg):
+    """Whole-batch RLC verify: one 0-dim bool verdict.
+
+    a_words: (8, K) distinct pubkey encodings (slot 0 = -B, pads = B);
+    r_words: (8, N) R encodings; a_mag/a_neg: (52, K), r_mag/r_neg:
+    (26, N) signed-window digits, MSB-first."""
+    tab_a, ok_a = build_a_tables(a_words)
+    return rlc_verify_kernel_cached_a(tab_a, ok_a, r_words,
+                                      a_mag, a_neg, r_mag, r_neg)
+
+
+def rlc_verify_kernel_cached_a(a_tab, a_ok, r_words,
+                               a_mag, a_neg, r_mag, r_neg):
+    """RLC verify with a PRE-BUILT A-side table (ATableCache): skips the
+    A decompression and table build."""
+    tab_r, ok_r = build_a_tables(r_words)
+    pa = cuda_msm.msm_window_major(a_tab, a_mag, a_neg)
+    pr = cuda_msm.msm_window_major(tab_r, r_mag, r_neg)
+    return a_ok & ok_r & cuda_msm.fold_verify(pa, pr)
+
+
+# ---------------------------------------------------------------------------
+# per-signature verification (reject localization)
+# ---------------------------------------------------------------------------
+
+WINDOW = 4
+
+# static base-point table k*B (k=0..15) in cached form, (16, 4, 20)
+_BTAB_NP = np.zeros((16, 4, fe.NLIMBS), dtype=np.int32)
+for _k, _pt_ref in enumerate(ref.base_window_table(WINDOW)):
+    _x, _y, _z, _t = _pt_ref
+    _zi = pow(_z, fe.P - 2, fe.P)
+    _x, _y = _x * _zi % fe.P, _y * _zi % fe.P
+    _BTAB_NP[_k, 0] = fe.int_to_limbs((_y + _x) % fe.P)
+    _BTAB_NP[_k, 1] = fe.int_to_limbs((_y - _x) % fe.P)
+    _BTAB_NP[_k, 2] = fe.int_to_limbs(fe.D2_INT * _x * _y % fe.P)
+    _BTAB_NP[_k, 3] = fe.int_to_limbs(2)
+
+
+def _nibbles(s: torch.Tensor) -> torch.Tensor:
+    """(16, N) radix-2**16 limbs -> (64, N) nibbles, LSB first."""
+    shifts = torch.arange(0, 16, 4, device=s.device).reshape(1, 4, 1)
+    return ((s.unsqueeze(1) >> shifts) & 0xF).reshape(-1, s.shape[-1])
+
+
+def _select(table, nib):
+    """table (16, 4, 20, N) or (16, 4, 20, 1), nib (N,) -> (4, 20, N)."""
+    n = nib.shape[0]
+    table = table.expand(table.shape[:3] + (n,))
+    idx = nib.long().reshape(1, 1, 1, n).expand((1,) + table.shape[1:])
+    return torch.gather(table, 0, idx)[0]
+
+
+def verify_kernel(a_words, r_words, s_limbs, h_limbs):
+    """Batched per-signature ZIP-215 verify.
+
+    a_words, r_words: (8, N) int32 bit patterns of pubkey / R encodings;
+    s_limbs, h_limbs: (16, N) int32 radix-2**16 limbs of s and
+    h = SHA512(R||A||M) mod L.  Returns (N,) bool verdicts.
+    Decompression runs on K1; the 4-bit Straus chain is plain torch
+    (it is plain XLA in the JAX package, and it runs only on a reject)."""
+    n = a_words.shape[-1]
+    pts, oks = decompress(torch.cat([a_words, r_words], dim=-1))
+    a_pt, r_pt = pts[..., :n], pts[..., n:]
+    ok_a, ok_r = oks[:n], oks[n:]
+
+    rows = [identity_point((n,), a_pt.device), point_neg(a_pt)]
+    neg_a_cached = to_cached(rows[1])
+    for _ in range(14):
+        rows.append(add_cached(rows[-1], neg_a_cached))
+    neg_a_tab = torch.stack([to_cached(r) for r in rows], dim=0)
+    btab = torch.as_tensor(_BTAB_NP, device=a_pt.device)[..., None]
+    s_nib = _nibbles(s_limbs)
+    h_nib = _nibbles(h_limbs)
+
+    acc = identity_point((n,), a_pt.device)
+    for i in range(s_nib.shape[0] - 1, -1, -1):
+        for _ in range(3):
+            acc = point_double(acc, with_t=False)
+        acc = point_double(acc, with_t=True)
+        acc = add_cached(acc, _select(btab, s_nib[i]))
+        acc = add_cached(acc, _select(neg_a_tab, h_nib[i]))
+    acc = add_cached(acc, to_cached(point_neg(r_pt)))
+    for _ in range(3):               # cofactor 8
+        acc = point_double(acc, with_t=False)
+    return ok_a & ok_r & point_is_identity(acc)
+
+
+# ---------------------------------------------------------------------------
+# shape buckets
+# ---------------------------------------------------------------------------
+
+_SMALL_WIDTHS = (8, 16, 32, 64, 96, 128, 160, 192)
+_BASE_WIDTHS = (128, 160, 192)
+
+
+def pad_width(n: int) -> int:
+    """Bucketed batch width for an MSM side: small widths verbatim,
+    larger ones base*2^L with base in a 3-element grid (pad waste
+    <= 25%)."""
+    if n <= _SMALL_WIDTHS[-1]:
+        for w in _SMALL_WIDTHS:
+            if n <= w:
+                return w
+    lvl = 1
+    while True:
+        for base in _BASE_WIDTHS:
+            if n <= base << lvl:
+                return base << lvl
+        lvl += 1
+
+
+BATCH_BUCKETS = (16, 64, 256, 1024, 4096, 16384)
+
+
+def bucket_size(n: int) -> int:
+    for b in BATCH_BUCKETS:
+        if n <= b:
+            return b
+    return ((n + BATCH_BUCKETS[-1] - 1) // BATCH_BUCKETS[-1]) \
+        * BATCH_BUCKETS[-1]
