@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's Ed25519 commit-verification path on one
-NVIDIA card and hold each of its CUDA kernels against its plain torch
-version.
+NVIDIA card, in each of its MSM engine configurations, and hold each of
+its CUDA kernels against its plain torch version.
 
     python3 chip_smoke.py
 
@@ -22,14 +22,24 @@ result):
              with an s >= L signature, non-canonical-y keys and a tampered
              signature, every verdict held against the pure-Python
              ed25519_ref.verify;
-  5. kernels each kernel vs its plain version on the card, at the shapes
-             phases 3-4 gave it (exact integer equality);
-  6. timing  each kernel's and plain version's median time (CUDA events),
+  5. engines the same entry points under each MSM engine configuration
+             (the JAX package's flags, set on the port's modules):
+             window_loop (K6), grouped_g4 and grouped_g13 (K5),
+             select_tree (K7 in the window scan, no fold kernel) and
+             fold_off (K3, no fold kernel) — the commit (accept and the
+             tampered signature), the window (accept and the bad height),
+             and for window_loop and grouped_g4 the clean 8,192 batch;
+             each must launch exactly its configuration's kernels;
+  6. kernels each kernel vs its plain version on the card, at the shapes
+             phases 3-4 gave it (exact integer equality), K5 also vs K3,
+             and K3, K5, K6, K7 on digits with magnitudes outside 0..16;
+  7. timing  each kernel's and plain version's median time (CUDA events),
              with the bound the card could reach for the same work.
-The launch counters are reset before phase 2 and read after phase 4:
-every kernel must have launched on the main path.  Keys and messages
-come from a fixed seed; the RLC weights are drawn from `secrets`, as
-they are in use.
+The launch counters are reset before phase 2 and read after phase 4
+(the default engine: every one of K1-K4 must launch there, none of
+K5-K7), and reset before and read after each configuration of phase 5.
+Keys and messages come from a fixed seed; the RLC weights are drawn from
+`secrets`, as they are in use.
 """
 
 from __future__ import annotations
@@ -52,7 +62,51 @@ N_BATCH = 8192
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 INT32_LANES_PER_SM_CLK = 64    # Hopper white paper
-SOURCE = "cometbft_tpu_torch/ops/csrc/ed25519_kernels.cu"
+CSRC = "cometbft_tpu_torch/ops/csrc/"
+
+# kernel -> (source, the TPU kernel's pallas_call it replaces)
+KERNELS = {
+    "ed25519_decompress": ("ed25519_kernels.cu",
+                           "cometbft_tpu/ops/pallas_decompress.py:143"),
+    "ed25519_table17_neg": ("ed25519_kernels.cu",
+                            "cometbft_tpu/ops/pallas_msm.py:417"),
+    "ed25519_msm_window_major": ("ed25519_kernels.cu",
+                                 "cometbft_tpu/ops/pallas_msm.py:498"),
+    "ed25519_fold_verify": ("ed25519_kernels.cu",
+                            "cometbft_tpu/ops/pallas_msm.py:730"),
+    "ed25519_msm_window_major_grouped": ("ed25519_engines.cu",
+                                         "cometbft_tpu/ops/pallas_msm.py:624"),
+    "ed25519_msm_window_loop": ("ed25519_engines.cu",
+                                "cometbft_tpu/ops/pallas_msm.py:317"),
+    "ed25519_select_tree": ("ed25519_engines.cu",
+                            "cometbft_tpu/ops/pallas_msm.py:360"),
+}
+DEFAULT_KERNELS = {"ed25519_decompress", "ed25519_table17_neg",
+                   "ed25519_msm_window_major", "ed25519_fold_verify"}
+
+# the engine flags (ops/ed25519 USE_PALLAS_*, ops/cuda_msm WIN_GROUP) at
+# the JAX package's defaults, and each configuration of phase 5: its
+# flags, the kernels it must launch (and no other), whether it also runs
+# the 8,192 batch
+DEFAULT_ENGINE = {"USE_PALLAS_MSM_MAJOR": True, "USE_PALLAS_MSM_LOOP": True,
+                  "USE_PALLAS_TREE": False, "USE_PALLAS_FOLD": True,
+                  "WIN_GROUP": 1}
+_TABLES = {"ed25519_decompress", "ed25519_table17_neg"}
+ENGINES = [
+    ("window_loop", {"USE_PALLAS_MSM_MAJOR": False},
+     _TABLES | {"ed25519_msm_window_loop", "ed25519_fold_verify"}, True),
+    ("grouped_g4", {"WIN_GROUP": 4},
+     _TABLES | {"ed25519_msm_window_major_grouped", "ed25519_fold_verify"},
+     True),
+    ("grouped_g13", {"WIN_GROUP": 13},
+     _TABLES | {"ed25519_msm_window_major_grouped", "ed25519_fold_verify"},
+     False),
+    ("select_tree", {"USE_PALLAS_MSM_MAJOR": False,
+                     "USE_PALLAS_MSM_LOOP": False, "USE_PALLAS_TREE": True},
+     _TABLES | {"ed25519_select_tree"}, False),
+    ("fold_off", {"USE_PALLAS_FOLD": False},
+     _TABLES | {"ed25519_msm_window_major"}, False),
+]
 
 # field products per kernel step, as int32 multiply-adds (mul 400,
 # squaring 210); used for the operation bound
@@ -137,7 +191,7 @@ def main() -> int:
     torch.cuda.set_device(0)
     state = {}
     phases = [phase_build, phase_fixtures, phase_commit, phase_window,
-              phase_batch, phase_kernels, phase_timing]
+              phase_batch, phase_engines, phase_kernels, phase_timing]
     ctx = mp.get_context("spawn")
     with ctx.Pool(os.cpu_count() or 1) as pool:
         state["pool"] = pool
@@ -247,11 +301,29 @@ def _kernels():
     return {"ed25519_decompress": cuda_decompress.decompress,
             "ed25519_table17_neg": cuda_msm.table17_neg,
             "ed25519_msm_window_major": cuda_msm.msm_window_major,
-            "ed25519_fold_verify": cuda_msm.fold_verify}
+            "ed25519_fold_verify": cuda_msm.fold_verify,
+            "ed25519_msm_window_major_grouped":
+                cuda_msm.msm_window_major_grouped,
+            "ed25519_msm_window_loop": cuda_msm.msm_window_loop,
+            "ed25519_select_tree": cuda_msm.select_tree}
 
 
 def _counts():
     return {k: fn.launches for k, fn in _kernels().items()}
+
+
+def _zero_counts():
+    for fn in _kernels().values():
+        fn.launches = 0
+
+
+def _set_engine(flags):
+    """Set the port's engine flags: DEFAULT_ENGINE updated by flags."""
+    from cometbft_tpu_torch.ops import cuda_msm
+    from cometbft_tpu_torch.ops import ed25519 as dev
+
+    for name, value in {**DEFAULT_ENGINE, **flags}.items():
+        setattr(cuda_msm if name == "WIN_GROUP" else dev, name, value)
 
 
 class _Timed:
@@ -278,34 +350,49 @@ class _Timed:
         setattr(self.mod, self.attr, self.fn)
 
 
-def phase_commit(state, torch):
-    from cometbft_tpu_torch.types import validation as val
+def _with_sig(commit, idx, byte, bit):
+    """commit with signature idx's byte flipped at bit: (commit, sig)."""
+    sigs = list(commit.signatures)
+    s = bytearray(sigs[idx].signature)
+    s[byte] ^= bit
+    sigs[idx] = type(sigs[idx])(sigs[idx].block_id_flag,
+                                sigs[idx].validator_address,
+                                sigs[idx].timestamp, bytes(s))
+    return type(commit)(commit.height, commit.round, commit.block_id,
+                        sigs), bytes(s)
 
-    for fn in _kernels().values():
-        fn.launches = 0                 # main path starts here
-    state["main_t0"] = time.perf_counter()
+
+def _commit_accept_reject(state, val):
+    """The 150-validator commit: accept, then one tampered signature
+    whose error names its index.  (accept seconds, reject seconds)."""
     vals = state["vals"]
     bid, commit = state["commits"][5]
-    before = _counts()
     t0 = time.perf_counter()
     val.verify_commit_light(CHAIN_ID, vals, bid, 5, commit, device=DEVICE)
     accept_s = time.perf_counter() - t0
-
     bad_idx = N_VALS // 4
-    sigs = list(commit.signatures)
-    s = bytearray(sigs[bad_idx].signature)
-    s[11] ^= 0x40
-    sigs[bad_idx] = type(sigs[bad_idx])(sigs[bad_idx].block_id_flag,
-                                        sigs[bad_idx].validator_address,
-                                        sigs[bad_idx].timestamp, bytes(s))
-    tampered = type(commit)(5, 0, bid, sigs)
+    tampered, s = _with_sig(commit, bad_idx, 11, 0x40)
+    t0 = time.perf_counter()
     try:
         val.verify_commit_light(CHAIN_ID, vals, bid, 5, tampered,
                                 device=DEVICE)
         raise PhaseError("tampered commit accepted")
     except val.ErrInvalidSignature as e:
         check(str(e).startswith(f"wrong signature (#{bad_idx}): "
-                                f"{bytes(s).hex()}"), f"wrong message {e}")
+                                f"{s.hex()}"), f"wrong message {e}")
+    return accept_s, time.perf_counter() - t0
+
+
+def phase_commit(state, torch):
+    from cometbft_tpu_torch.types import validation as val
+
+    _set_engine({})
+    _zero_counts()                      # main path starts here
+    state["main_t0"] = time.perf_counter()
+    vals = state["vals"]
+    bid, commit = state["commits"][5]
+    before = _counts()
+    accept_s, _ = _commit_accept_reject(state, val)
 
     from cometbft_tpu_torch.types import block
     needed = 10 * N_VALS * 2 // 3
@@ -332,6 +419,26 @@ def _run_window(state, val, commits):
     n = batch.count()
     batch.verify(device=DEVICE)
     return n
+
+
+def _window_reject(state, val, commits):
+    """The window with one bad signature at a known height: the error
+    must name the height.  (seconds, the bad window's commits)."""
+    bad_h = state["heights"][len(state["heights"]) // 3]
+    bid, commit = state["commits"][bad_h]
+    bad_commit, s = _with_sig(commit, 5, 40, 0x01)
+    bad = [(h, (b, bad_commit if h == bad_h else c))
+           for h, (b, c) in commits]
+    t0 = time.perf_counter()
+    try:
+        _run_window(state, val, bad)
+        raise PhaseError("bad window accepted")
+    except val.ErrInvalidSignature as e:
+        check(getattr(e, "failed_ctx", None) == bad_h,
+              f"blamed {getattr(e, 'failed_ctx', None)}, not {bad_h}")
+        check(str(e) == f"wrong signature in commit at height {bad_h}: "
+              f"{s.hex()}", f"wrong message {e}")
+    return time.perf_counter() - t0, bad, bad_h
 
 
 def phase_window(state, torch):
@@ -364,29 +471,9 @@ def phase_window(state, torch):
           f"programs {[r['program'] for r in runs]}")
     check(runs[2]["cache_hit"], "third window missed the ATableCache")
 
-    # one bad signature at a known height
-    bad_h = state["heights"][len(state["heights"]) // 3]
-    bid, commit = state["commits"][bad_h]
-    sigs = list(commit.signatures)
-    s = bytearray(sigs[5].signature)
-    s[40] ^= 0x01
-    sigs[5] = type(sigs[5])(sigs[5].block_id_flag, sigs[5].validator_address,
-                            sigs[5].timestamp, bytes(s))
-    bad = [(h, (b, type(c)(h, 0, b, sigs) if h == bad_h else c))
-           for h, (b, c) in commits]
     with _Timed(dev, "verify_kernel", torch) as persig:
-        t0 = time.perf_counter()
-        try:
-            _run_window(state, val, bad)
-            raise PhaseError("bad window accepted")
-        except val.ErrInvalidSignature as e:
-            check(getattr(e, "failed_ctx", None) == bad_h,
-                  f"blamed {getattr(e, 'failed_ctx', None)}, not {bad_h}")
-            check(str(e) == f"wrong signature in commit at height {bad_h}: "
-                  f"{bytes(s).hex()}", f"wrong message {e}")
-        reject_s = time.perf_counter() - t0
-    packed = ed.pack_rlc(*_window_items(state, bad))
-    state["window_packed_bad"] = packed
+        reject_s, bad, bad_h = _window_reject(state, val, commits)
+    state["window_packed_bad"] = ed.pack_rlc(*_window_items(state, bad))
     state["window_packed"] = ed.pack_rlc(*_window_items(state, commits))
     end = _counts()
     return {"runs": runs, "bad_height": bad_h, "reject_seconds": reject_s,
@@ -406,6 +493,23 @@ def _window_items(state, commits):
             [e[4] for e in ents])
 
 
+def _clean_batch(state, torch):
+    """The 8,192 distinct-key batch, clean: (seconds, rlc seconds)."""
+    from cometbft_tpu_torch.crypto import batch as cb
+    from cometbft_tpu_torch.crypto import ed25519 as ed
+
+    bv = cb.create_batch_verifier("ed25519", n_hint=N_BATCH, device=DEVICE)
+    for p, m, s in zip(*state["batch"]):
+        bv.add(p, m, s)
+    with _Timed(ed, "rlc_verify", torch) as rlc:
+        t0 = time.perf_counter()
+        ok, verdicts = bv.verify()
+        seconds = time.perf_counter() - t0
+    check(ok and all(verdicts) and len(verdicts) == N_BATCH,
+          "clean batch rejected")
+    return seconds, rlc.seconds
+
+
 def phase_batch(state, torch):
     from cometbft_tpu_torch.crypto import batch as cb
     from cometbft_tpu_torch.crypto import ed25519 as ed
@@ -413,20 +517,12 @@ def phase_batch(state, torch):
 
     ref = state["ref"]
     before = _counts()
-    pubs, msgs, sigs = (list(x) for x in state["batch"])
-    bv = cb.create_batch_verifier("ed25519", n_hint=N_BATCH, device=DEVICE)
-    for p, m, s in zip(pubs, msgs, sigs):
-        bv.add(p, m, s)
-    with _Timed(ed, "rlc_verify", torch) as rlc:
-        t0 = time.perf_counter()
-        ok, verdicts = bv.verify()
-        clean_s = time.perf_counter() - t0
-    check(ok and all(verdicts) and len(verdicts) == N_BATCH,
-          "clean batch rejected")
+    clean_s, clean_rlc_s = _clean_batch(state, torch)
 
     # hostile entries: s >= L, a key with y = p + 3 under a junk
     # signature, a tampered signature, and a VALID signature under the
     # non-canonical encoding y = p + 1 of the identity (R = sB)
+    pubs, msgs, sigs = (list(x) for x in state["batch"])
     i1, i2, i3, i4 = (N_BATCH // 8 * k for k in (1, 2, 3, 4))
     sigs[i1] = sigs[i1][:32] + (ref.L + 7).to_bytes(32, "little")
     pubs[i2] = (ref.P + 3).to_bytes(32, "little")
@@ -454,13 +550,14 @@ def phase_batch(state, torch):
     check(want[i4], "identity-key signature rejected")
     state["main_s"] = time.perf_counter() - state["main_t0"]
     state["main_launches"] = _counts()
-    check(all(v > 0 for v in state["main_launches"].values()),
-          f"a kernel never launched on the main path: "
+    launched = {k for k, v in state["main_launches"].items() if v}
+    check(launched == DEFAULT_KERNELS, "the default engine launched "
+          f"{sorted(launched)}, not {sorted(DEFAULT_KERNELS)}: "
           f"{state['main_launches']}")
     state["batch_items"] = (pubs, msgs, sigs)
     state["batch_packed"] = ed.pack_rlc(*state["batch"])
     return {"clean_seconds": clean_s, "clean_sigs_per_s": N_BATCH / clean_s,
-            "clean_rlc_verify_seconds": rlc.seconds,
+            "clean_rlc_verify_seconds": clean_rlc_s,
             "hostile_seconds": hostile_s, "persig_seconds": persig.seconds,
             "oracle_seconds": oracle_s,
             "launches": {k: state["main_launches"][k] - before[k]
@@ -468,7 +565,56 @@ def phase_batch(state, torch):
             "main_path_launches": state["main_launches"]}
 
 
-# -- phase 5: kernel vs plain --------------------------------------------------
+# -- phase 5: the engine configurations -------------------------------------------
+
+def phase_engines(state, torch):
+    """Each configuration drives the commit, the window and (where
+    listed) the batch through the normal entry points, with the counts
+    set to 0 just before and read just after; it must launch exactly its
+    kernels.  The A-table cache starts empty, so the window's programs
+    are the whole one and the cached-A one."""
+    from cometbft_tpu_torch.crypto import ed25519 as ed
+    from cometbft_tpu_torch.types import validation as val
+
+    commits = [(h, state["commits"][h]) for h in state["heights"]]
+    rows = []
+    state["engine_launches"] = {}
+    for name, flags, needed, with_batch in ENGINES:
+        _set_engine(flags)
+        try:
+            ed._A_TABLE_CACHE = ed.ATableCache()
+            _zero_counts()
+            t0 = time.perf_counter()
+            rec = {"configuration": name, "flags": flags}
+            rec["commit_accept_seconds"], rec["commit_reject_seconds"] = \
+                _commit_accept_reject(state, val)
+            with _Timed(ed, "rlc_verify", torch) as rlc:
+                t1 = time.perf_counter()
+                n = _run_window(state, val, commits)
+                rec["window_seconds"] = time.perf_counter() - t1
+                rec["window_sigs_per_s"] = n / rec["window_seconds"]
+                rec["window_rlc_verify_seconds"] = rlc.seconds
+            rec["window_reject_seconds"], _, _ = _window_reject(
+                state, val, commits)
+            if with_batch:
+                rec["batch_seconds"], rec["batch_rlc_verify_seconds"] = \
+                    _clean_batch(state, torch)
+                rec["batch_sigs_per_s"] = N_BATCH / rec["batch_seconds"]
+            rec["seconds"] = time.perf_counter() - t0
+            counts = _counts()
+        finally:
+            _set_engine({})
+        launched = {k for k, v in counts.items() if v}
+        check(launched == needed, f"{name} launched {sorted(launched)}, "
+              f"not {sorted(needed)}: {counts}")
+        rec["launches"] = counts
+        state["engine_launches"][name] = counts
+        rows.append(rec)
+    _zero_counts()
+    return {"configurations": rows}
+
+
+# -- phase 6: kernel vs plain --------------------------------------------------
 
 def _hostile_words(state, torch):
     """K1 input at W = 8192: the phase-4 public keys (two of them
@@ -499,10 +645,25 @@ def _proj_err(torch, fe, a, b):
     return int(max(ex, ey))
 
 
+def _hostile_digits(torch, mags):
+    """mags with magnitudes 17, 31 and -1 in the first and last windows:
+    each selects the identity."""
+    m = mags.clone()
+    bad = torch.tensor([17, 31, -1], dtype=torch.int32, device=m.device)
+    m[0, :3] = bad
+    m[-1, -3:] = bad
+    return m
+
+
+def _exact(a, b):
+    return int((a - b).abs().max())
+
+
 def phase_kernels(state, torch):
     from cometbft_tpu_torch import convert
     from cometbft_tpu_torch.ops import cuda_decompress as cd
     from cometbft_tpu_torch.ops import cuda_msm as cm
+    from cometbft_tpu_torch.ops import ed25519 as dev
     from cometbft_tpu_torch.ops import fe
 
     saved = _counts()
@@ -523,7 +684,7 @@ def phase_kernels(state, torch):
                           ("batch", state["batch_packed"])):
         t = convert.packed_from_numpy(packed, DEVICE)
         shapes[label] = t
-    k2, k3 = [], []
+    k2, k3, k5, k6, k7 = [], [], [], [], []
     for label, t in shapes.items():
         for side, (w, mags, negs) in (("A", (t[0], t[2], t[3])),
                                       ("R", (t[1], t[4], t[5]))):
@@ -535,25 +696,66 @@ def phase_kernels(state, torch):
             if side == "A":
                 k2.append({"shape": [4, 20, pt.shape[-1]], "max_abs_err": e2,
                            "args": (pt,), "phase": label})
-            part = cm.msm_window_major(tab, mags, negs)
-            part_p = cm.msm_window_major_plain(tab, mags, negs)
-            e3 = int((part - part_p).abs().max())
-            e3 = max(e3, _proj_err(torch, fe, part, part_p))
-            check(e3 == 0, f"K3 {label}/{side} differs by {e3}")
-            k3.append({"shape": [int(mags.shape[0]), int(mags.shape[1])],
-                       "max_abs_err": e3, "args": (tab, mags, negs),
-                       "phase": label, "partials": part})
+            nwin, width = (int(d) for d in mags.shape)
+            digit_sets = [(label, mags)]
+            if label == "window" and side == "R":
+                digit_sets.append(("digits outside 0..16",
+                                   _hostile_digits(torch, mags)))
+            for phase, mg in digit_sets:
+                part = cm.msm_window_major(tab, mg, negs, group=1)
+                e3 = _exact(part, cm.msm_window_major_plain(tab, mg, negs))
+                check(e3 == 0, f"K3 {phase}/{side} differs by {e3}")
+                k3.append({"shape": [nwin, width], "max_abs_err": e3,
+                           "args": (tab, mg, negs), "phase": phase,
+                           "partials": part})
+                for requested in (4, 13):
+                    g = cm.group_for(nwin, requested)
+                    p5 = cm.msm_window_major_grouped(tab, mg, negs, g)
+                    e5 = _exact(p5, cm.msm_window_major_grouped_plain(
+                        tab, mg, negs, g))
+                    vs_k3 = _exact(p5, part)
+                    check(e5 == 0 and vs_k3 == 0, f"K5 {phase}/{side} G {g} "
+                          f"differs from plain by {e5}, from K3 by {vs_k3}")
+                    k5.append({"shape": [nwin, width], "group": g,
+                               "max_abs_err": e5, "vs_k3": vs_k3,
+                               "args": (tab, mg, negs, g), "phase": phase})
+                blk = cm.loop_blk(width)
+                p6 = cm.msm_window_loop(tab, mg, negs, blk)
+                e6 = _exact(p6, cm.msm_window_loop_plain(tab, mg, negs, blk))
+                sum_err = _proj_err(torch, fe, dev._tree_reduce(p6, 1),
+                                    dev._tree_reduce(part, 1))
+                check(e6 == 0 and sum_err == 0, f"K6 {phase}/{side} differs "
+                      f"from plain by {e6}; its sum from K3's by {sum_err}")
+                k6.append({"shape": [nwin, width], "blk": blk,
+                           "max_abs_err": e6, "args": (tab, mg, negs, blk),
+                           "phase": phase})
+                for j in (0, nwin - 1):
+                    p7 = cm.select_tree(tab, mg[j], negs[j], blk)
+                    e7 = _exact(p7, cm.select_tree_plain(tab, mg[j], negs[j],
+                                                         blk))
+                    check(e7 == 0, f"K7 {phase}/{side} row {j} differs by "
+                          f"{e7}")
+                    k7.append({"shape": [width], "row": j, "blk": blk,
+                               "max_abs_err": e7,
+                               "args": (tab, mg[j], negs[j], blk),
+                               "phase": phase})
     cases["ed25519_table17_neg"] = k2
     cases["ed25519_msm_window_major"] = k3
+    cases["ed25519_msm_window_major_grouped"] = k5
+    cases["ed25519_msm_window_loop"] = k6
+    cases["ed25519_select_tree"] = k7
     k4 = []
     bad = convert.packed_from_numpy(state["window_packed_bad"], DEVICE)
     bad_pa, bad_pr = (cm.msm_window_major(cm.table17_neg(cd.decompress(w)[0]),
-                                          m, n)
+                                          m, n, group=1)
                       for w, m, n in ((bad[0], bad[2], bad[3]),
                                       (bad[1], bad[4], bad[5])))
+    main_k3 = [c for c in k3 if c["phase"] in ("window", "batch")]
     for label, want, pa, pr in (
-            ("batch accept", True, k3[2]["partials"], k3[3]["partials"]),
-            ("window accept", True, k3[0]["partials"], k3[1]["partials"]),
+            ("batch accept", True, main_k3[2]["partials"],
+             main_k3[3]["partials"]),
+            ("window accept", True, main_k3[0]["partials"],
+             main_k3[1]["partials"]),
             ("window reject", False, bad_pa, bad_pr)):
         got = cm.fold_verify(pa, pr)
         plain = cm.fold_verify_plain(pa, pr)
@@ -565,14 +767,14 @@ def phase_kernels(state, torch):
     for name, fn in _kernels().items():  # comparison launches do not count
         fn.launches = saved[name]
     state["cases"] = cases
+    keep = ("shape", "max_abs_err", "group", "vs_k3", "blk", "row")
     return {"tolerance": "exact: integer limbs, frozen and projective",
-            "compared": {k: [dict(shape=c["shape"],
-                                  max_abs_err=c["max_abs_err"],
-                                  phase=c.get("phase", "batch"))
+            "compared": {k: [{"phase": c.get("phase", "batch"),
+                              **{f: c[f] for f in keep if f in c}}
                              for c in v] for k, v in cases.items()}}
 
 
-# -- phase 6: timing -------------------------------------------------------------
+# -- phase 7: timing -------------------------------------------------------------
 
 def _time(torch, fn, args, reps):
     fn(*args)
@@ -593,19 +795,35 @@ def _time(torch, fn, args, reps):
 def _work(name, case):
     """(int32 multiply-adds, bytes) the function needs on these inputs:
     field products only; each input read once, each output written
-    once."""
+    once.  An MSM over all windows counts its whole table; one window of
+    select-tree needs one table row per lane."""
+    from cometbft_tpu_torch.ops import cuda_msm as cm
+
     if name == "ed25519_decompress":
         w = case["args"][0].shape[-1]
         return w * DECOMPRESS, w * (32 + 320 + 4)
     if name == "ed25519_table17_neg":
         w = case["args"][0].shape[-1]
         return w * TABLE, w * (320 + 17 * 320)
-    if name == "ed25519_msm_window_major":
-        tab, mags, _ = case["args"]
+    if name in ("ed25519_msm_window_major",
+                "ed25519_msm_window_major_grouped"):
+        mags = case["args"][1]
         nwin, w = mags.shape
         nblk = -(-w // 32)
         ops = nwin * (w - 1) * ADD + (nwin - 1) * (4 * DBL + DBL_T + ADD)
         return ops, w * 17 * 320 + nwin * w * 5 + nblk * 320
+    if name == "ed25519_msm_window_loop":
+        mags, blk = case["args"][1], case["args"][3]
+        nwin, w = mags.shape
+        blk, out_l, nblk = cm.loop_geometry(w, blk)
+        nout = nblk * out_l
+        ops = (nwin * nblk * (blk - out_l) * ADD
+               + (nwin - 1) * nout * (4 * DBL + DBL_T + ADD))
+        return ops, w * 17 * 320 + nwin * w * 5 + nout * 320
+    if name == "ed25519_select_tree":
+        w, blk = case["args"][1].shape[-1], case["args"][3]
+        blk, out_l, nblk = cm.loop_geometry(w, blk)
+        return nblk * (blk - out_l) * ADD, w * (320 + 5) + nblk * out_l * 320
     pa, pr = case["args"]
     n = pa.shape[-1] + pr.shape[-1]
     return (n - 1) * ADD + 3 * DBL, n * 320 + 4
@@ -618,14 +836,13 @@ def phase_timing(state, torch):
     plain = {"ed25519_decompress": cd.decompress_plain,
              "ed25519_table17_neg": cm.table17_neg_plain,
              "ed25519_msm_window_major": cm.msm_window_major_plain,
-             "ed25519_fold_verify": cm.fold_verify_plain}
+             "ed25519_fold_verify": cm.fold_verify_plain,
+             "ed25519_msm_window_major_grouped":
+                 cm.msm_window_major_grouped_plain,
+             "ed25519_msm_window_loop": cm.msm_window_loop_plain,
+             "ed25519_select_tree": cm.select_tree_plain}
     saved = _counts()
     peak_ops = 132 * INT32_LANES_PER_SM_CLK * state["sm_clock_hz"]
-    replaces = {
-        "ed25519_decompress": "cometbft_tpu/ops/pallas_decompress.py:143",
-        "ed25519_table17_neg": "cometbft_tpu/ops/pallas_msm.py:417",
-        "ed25519_msm_window_major": "cometbft_tpu/ops/pallas_msm.py:498",
-        "ed25519_fold_verify": "cometbft_tpu/ops/pallas_msm.py:730"}
     rows = []
     for name, fn in _kernels().items():
         shapes = []
@@ -640,11 +857,19 @@ def phase_timing(state, torch):
                            "bound_ms": max(t_ops, t_bytes),
                            "bound_by": "operations" if t_ops >= t_bytes
                            else "bytes", "int32_madds": ops, "bytes": nbytes,
-                           "max_abs_err": case["max_abs_err"]})
+                           "max_abs_err": case["max_abs_err"],
+                           **{k: case[k] for k in ("group", "blk", "row")
+                              if k in case}})
         top = max(shapes, key=lambda s: s["ms"])
-        rows.append({"name": name, "route": "cuda", "source": SOURCE,
-                     "replaces": replaces[name],
-                     "launches": state["main_launches"][name],
+        by_path = {"main": state["main_launches"][name],
+                   **{cfg: c[name]
+                      for cfg, c in state["engine_launches"].items()}}
+        launches = (by_path["main"] if name in DEFAULT_KERNELS else
+                    sum(v for k, v in by_path.items() if k != "main"))
+        source, replaces = KERNELS[name]
+        rows.append({"name": name, "route": "cuda", "source": CSRC + source,
+                     "replaces": replaces, "launches": launches,
+                     "launches_by_path": by_path,
                      "max_abs_err": max(s["max_abs_err"] for s in shapes),
                      "ms": top["ms"], "plain_ms": top["plain_ms"],
                      "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],

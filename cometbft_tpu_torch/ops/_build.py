@@ -39,6 +39,16 @@ SIGNATURES = {
         "ed25519_msm_lanes": [],
         "ed25519_fold_threads": [],
     },
+    "ed25519_engines": {
+        "ed25519_msm_window_loop": [_P, _P, _P, _I64, _I32, _I32, _I32, _I64,
+                                    _P, _P],
+        "ed25519_select_tree": [_P, _P, _P, _I64, _I32, _I32, _I64, _P, _P],
+        "ed25519_msm_window_major_grouped": [_P, _P, _P, _I64, _I32, _I32, _P,
+                                             _P],
+        "ed25519_loop_threads": [],
+        "ed25519_loop_max_rows": [],
+        "ed25519_group_warps": [],
+    },
 }
 
 _lock = threading.Lock()

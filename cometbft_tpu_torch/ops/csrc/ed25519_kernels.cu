@@ -163,9 +163,10 @@ __device__ __forceinline__ pt block_tree(int32_t (*sm)[N], pt p) {
 // |d| of its lane from the table in global memory (the TPU selects with a
 // 17-way cascade over the whole block), negates X and T if d < 0, the
 // block tree-reduces to one point, and thread 0 runs 5 doublings and the
-// add.  Lanes past W contribute the identity.
-// tab: (17, 4, 20, W); mags: (nwin, W) int32 0..16; negs: (nwin, W)
-// uint8; out: (4, 20, nblk) partials, nblk = ceil(W / MSM_LANES).
+// add.  Lanes past W, and magnitudes outside 0..16, contribute the
+// identity.
+// tab: (17, 4, 20, W); mags: (nwin, W) int32; negs: (nwin, W) uint8;
+// out: (4, 20, nblk) partials, nblk = ceil(W / MSM_LANES).
 __global__ void __launch_bounds__(MSM_LANES)
 msm_window_major_kernel(const int32_t* __restrict__ tab,
                         const int32_t* __restrict__ mags,
@@ -174,36 +175,13 @@ msm_window_major_kernel(const int32_t* __restrict__ tab,
   __shared__ int32_t sm[4 * NL][MSM_LANES];
   const int t = threadIdx.x;
   const int64_t lane = (int64_t)blockIdx.x * MSM_LANES + t;
-  const int64_t row = 4 * NL * w;
   pt acc = identity();
 #pragma unroll 1
   for (int j = 0; j < nwin; ++j) {
-    pt p;
-    if (lane < w) {
-      int m = mags[(int64_t)j * w + lane];
-      m = m < 0 ? 0 : (m > 16 ? 16 : m);
-      p = load_point(tab + m * row, w, lane);
-      if (negs[(int64_t)j * w + lane]) {
-#pragma unroll
-        for (int l = 0; l < NL; ++l) {
-          p.X.v[l] = -p.X.v[l];
-          p.T.v[l] = -p.T.v[l];
-        }
-      }
-    } else {
-      p = identity();
-    }
+    pt p = lane < w ? select_signed(tab, mags + (int64_t)j * w, negs + (int64_t)j * w, w, lane)
+                    : identity();
     p = block_tree<MSM_LANES>(sm, p);
-    if (t == 0) {
-      if (j == 0) {
-        acc = p;
-      } else {
-#pragma unroll 1
-        for (int k = 0; k < 4; ++k) acc = point_double(acc, false);
-        acc = point_double(acc, true);
-        acc = point_add(acc, p);
-      }
-    }
+    if (t == 0) acc = j == 0 ? p : straus_step(acc, p);
   }
   if (t == 0) store_point(out, gridDim.x, blockIdx.x, acc);
 }

@@ -316,4 +316,34 @@ __device__ __forceinline__ void store_point(int32_t* base, int64_t w, int64_t la
   store_fe(base, w, lane, 3, p.T);
 }
 
+// ------------------------------------------------ signed-digit row select
+// One lane's row |d| of a negated window table (17, 4, 20, W), with X and
+// T negated (plain arithmetic negation) when the digit's sign is set.
+// mags / negs point at one window's (W,) row.  A magnitude outside 0..16
+// selects row 0, the identity, as the JAX package's 17-way select
+// cascade does.
+__device__ __forceinline__ pt select_signed(const int32_t* tab, const int32_t* mags,
+                                            const uint8_t* negs, int64_t w, int64_t lane) {
+  int m = mags[lane];
+  if (m < 0 || m > 16) m = 0;
+  pt p = load_point(tab + (int64_t)m * 4 * NL * w, w, lane);
+  if (negs[lane]) {
+#pragma unroll
+    for (int l = 0; l < NL; ++l) {
+      p.X.v[l] = -p.X.v[l];
+      p.T.v[l] = -p.T.v[l];
+    }
+  }
+  return p;
+}
+
+// acc <- 32 * acc + p: 4 doublings without T, one with T, the add (the
+// Straus step of one 5-bit window)
+__device__ __forceinline__ pt straus_step(pt acc, const pt& p) {
+#pragma unroll 1
+  for (int k = 0; k < 4; ++k) acc = point_double(acc, false);
+  acc = point_double(acc, true);
+  return point_add(acc, p);
+}
+
 }  // namespace fe25519

@@ -3,18 +3,34 @@ RLC whole-batch program and the per-signature program — the port's
 counterpart of `cometbft_tpu.ops.ed25519`.
 
 Layout is the JAX package's: field elements (20, W), points (4, 20, W),
-window tables (17, 4, 20, W), the batch axis minor.  The four hot steps
-of the RLC program go through the kernel wrappers of
-ops/cuda_decompress.py (K1) and ops/cuda_msm.py (K2-K4): on a CUDA
-tensor each launches its hand-written kernel, on a CPU tensor it runs
-its plain version.  Everything else here is plain torch on whatever
-device its inputs live on.
+window tables (17, 4, 20, W), the batch axis minor.  The hot steps of
+the RLC program go through the kernel wrappers of ops/cuda_decompress.py
+(K1) and ops/cuda_msm.py (K2-K7): on a CUDA tensor each launches its
+hand-written kernel, on a CPU tensor it runs its plain version.
+Everything else here is plain torch on whatever device its inputs live
+on.
+
+The MSM engine is chosen as in the JAX package, by the same environment
+variables with the same defaults, read at import into the module flags
+below (tests and chip_smoke.py flip the attributes):
+  USE_PALLAS_MSM_MAJOR  window-major, K3 (K5 when WIN_GROUP > 1), default;
+  USE_PALLAS_MSM_LOOP   window-loop K6, when window-major is off;
+  USE_PALLAS_TREE       select-tree K7 inside the window scan, when both
+                        are off;
+  USE_PALLAS_FOLD       fused fold epilogue K4 over the partials; off,
+                        each side reduces to one point and the epilogue is
+                        torch point ops.
+With all three MSM flags off the window scan is plain torch.  The JAX
+flags USE_PALLAS_TABLE and USE_PALLAS_DECOMPRESS have no counterpart:
+they only choose XLA over a kernel, and the port always runs K1 and K2.
 
 Verification follows ZIP-215: non-canonical y accepted, cofactored
 equation, s < L enforced host-side (crypto/ed25519.parse_signature).
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -79,6 +95,15 @@ def point_add(p, q):
     return add_cached(p, to_cached(q))
 
 
+def straus_step(acc, p):
+    """acc <- 32 * acc + p, one 5-bit window of the Straus recurrence:
+    4 doublings without T, one with T, the add."""
+    for _ in range(4):
+        acc = point_double(acc, with_t=False)
+    acc = point_double(acc, with_t=True)
+    return point_add(acc, p)
+
+
 def point_neg(p):
     return torch.stack([fe.neg(p[_X]), p[_Y], p[_Z], fe.neg(p[_T])], dim=0)
 
@@ -133,10 +158,116 @@ def build_a_tables(enc_words):
     return cuda_msm.table17_neg(pt), ok.all()
 
 
+# ---------------------------------------------------------------------------
+# MSM engine configurations
+# ---------------------------------------------------------------------------
+
+NPART_MAX = 192      # max lane-resident partial accumulators (plain scan)
+
+USE_PALLAS_TREE = os.environ.get("COMETBFT_TPU_PALLAS_TREE", "0") == "1"
+USE_PALLAS_MSM_LOOP = os.environ.get(
+    "COMETBFT_TPU_PALLAS_MSM_LOOP", "1") == "1"
+USE_PALLAS_FOLD = os.environ.get("COMETBFT_TPU_PALLAS_FOLD", "1") == "1"
+USE_PALLAS_MSM_MAJOR = os.environ.get(
+    "COMETBFT_TPU_PALLAS_MSM_MAJOR", "1") == "1"
+
+
+def _require_straus() -> None:
+    """COMETBFT_TPU_MSM_ENGINE: straus, or auto (which the JAX package's
+    cost model resolves to Straus at every ed25519 width).  The bucket
+    (Pippenger) engine of ops/msm.py is not ported yet, so asking for it
+    raises rather than running Straus in its place."""
+    engine = os.environ.get("COMETBFT_TPU_MSM_ENGINE", "auto")
+    if engine == "bucket":
+        raise NotImplementedError(
+            "COMETBFT_TPU_MSM_ENGINE=bucket: the bucket MSM engine "
+            "(ops/msm.py) is not ported to cometbft_tpu_torch; use straus "
+            "or auto")
+
+
+def _npart(w: int) -> int:
+    """Partial-accumulator count: halve the width until <= NPART_MAX."""
+    while w > NPART_MAX:
+        if w % 2:
+            raise ValueError(f"width {w} does not halve to <= {NPART_MAX} "
+                             "partials")
+        w //= 2
+    return w
+
+
+def _select17(table, mag):
+    """(17, 4, 20, W) table, (W,) int32 magnitudes -> (4, 20, W); a
+    magnitude outside 1..16 selects row 0."""
+    sel = table[0]
+    for k in range(1, 17):
+        sel = torch.where((mag == k)[None, None], table[k], sel)
+    return sel
+
+
+def _cond_neg_point(p, neg):
+    """Negate extended points where neg: X -> -X, T -> -T (plain
+    arithmetic negation of the redundant signed limbs)."""
+    n = neg[None]
+    return torch.stack([torch.where(n, -p[_X], p[_X]), p[_Y], p[_Z],
+                        torch.where(n, -p[_T], p[_T])], dim=0)
+
+
 def _msm_scan(tab, mags, negs):
-    """The MSM value as one (4, 20, 1) point: K3's per-block partials
-    tree-reduced (the counterpart of the JAX package's _msm_scan)."""
-    return _tree_reduce(cuda_msm.msm_window_major(tab, mags, negs), 1)
+    """The MSM value as one (4, 20, 1) point, through the engine the
+    flags choose: window-major (K3, or K5 when WIN_GROUP > 1), else
+    window-loop (K6), else a window scan of torch point ops whose window
+    contributions come from select-tree (K7) or, with all three flags
+    off, from a plain torch select and tree.
+
+    tab: (17, 4, 20, W); mags: (nwin, W) int32 magnitudes, MSB-first;
+    negs: (nwin, W) bool signs."""
+    w = tab.shape[-1]
+    _require_straus()
+    if USE_PALLAS_MSM_MAJOR:
+        return _tree_reduce(cuda_msm.msm_window_major(tab, mags, negs), 1)
+    if USE_PALLAS_MSM_LOOP:
+        return _tree_reduce(cuda_msm.msm_window_loop(tab, mags, negs), 1)
+    if USE_PALLAS_TREE:
+        blk, out_l, nblk = cuda_msm.loop_geometry(w, None)
+        npart = nblk * out_l
+
+        def window_contrib(mag, neg):
+            return cuda_msm.select_tree(tab, mag, neg, blk)
+    else:
+        npart = _npart(w)
+
+        def window_contrib(mag, neg):
+            contrib = _cond_neg_point(_select17(tab, mag), neg)
+            return _tree_reduce(contrib, npart)
+
+    acc = identity_point((npart,), tab.device)
+    for j in range(mags.shape[0]):
+        acc = straus_step(acc, window_contrib(mags[j], negs[j]))
+    return _tree_reduce(acc, 1)
+
+
+def _msm(enc_words, mags, negs):
+    """Straus MSM sum_i e_i * (-P_i) over one batch side: decompress
+    (K1), 17-row tables (K2), the scan.  Returns ((4, 20, 1) point,
+    all-decompressed-ok)."""
+    tab, ok = build_a_tables(enc_words)
+    return _msm_scan(tab, mags, negs), ok
+
+
+def _loop_partials(tab, mags, negs):
+    """One MSM side's partials for the fused epilogue: window-major
+    (K3 / K5) or window-loop (K6), or None when both are off.  Unlike the
+    JAX package, which drops to XLA at a width with no legal block, the
+    port's kernels take any width, so None means only that the flags
+    ask for the non-fused scan.  The JAX package's fused branch does not
+    consult the MSM engine; the port refuses the bucket engine here too,
+    since it has none to run."""
+    if not (USE_PALLAS_MSM_LOOP or USE_PALLAS_MSM_MAJOR):
+        return None
+    _require_straus()
+    if USE_PALLAS_MSM_MAJOR:
+        return cuda_msm.msm_window_major(tab, mags, negs)
+    return cuda_msm.msm_window_loop(tab, mags, negs)
 
 
 # ---------------------------------------------------------------------------
@@ -164,11 +295,21 @@ def rlc_verify_kernel(a_words, r_words, a_mag, a_neg, r_mag, r_neg):
 def rlc_verify_kernel_cached_a(a_tab, a_ok, r_words,
                                a_mag, a_neg, r_mag, r_neg):
     """RLC verify with a PRE-BUILT A-side table (ATableCache): skips the
-    A decompression and table build."""
+    A decompression and table build.  Fused: both sides' partials, then
+    K4.  Non-fused (USE_PALLAS_FOLD off, or no partials): each side's
+    _msm_scan, then the add, 3 cofactor doublings and the identity test
+    in torch point ops."""
     tab_r, ok_r = build_a_tables(r_words)
-    pa = cuda_msm.msm_window_major(a_tab, a_mag, a_neg)
-    pr = cuda_msm.msm_window_major(tab_r, r_mag, r_neg)
-    return a_ok & ok_r & cuda_msm.fold_verify(pa, pr)
+    if USE_PALLAS_FOLD:
+        pa = _loop_partials(a_tab, a_mag, a_neg)
+        pr = _loop_partials(tab_r, r_mag, r_neg)
+        if pa is not None and pr is not None:
+            return a_ok & ok_r & cuda_msm.fold_verify(pa, pr)
+    total = point_add(_msm_scan(a_tab, a_mag, a_neg),
+                      _msm_scan(tab_r, r_mag, r_neg))
+    for _ in range(3):               # cofactor 8
+        total = point_double(total, with_t=False)
+    return a_ok & ok_r & point_is_identity(total)[0]
 
 
 # ---------------------------------------------------------------------------

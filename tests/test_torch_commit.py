@@ -228,6 +228,8 @@ _STANDALONE = textwrap.dedent("""
     sys.modules["jax"] = None
     sys.modules["cometbft_tpu"] = None
     sys.path.insert(0, sys.argv[1])
+    import torch
+    torch.set_num_threads(1)   # tiny tensors; no OpenMP spin beside busy workers
     from cometbft_tpu_torch.crypto import batch, ed25519 as ed
     from cometbft_tpu_torch.types import block, validation
     from cometbft_tpu_torch.types.canonical import vote_sign_bytes
@@ -247,6 +249,21 @@ _STANDALONE = textwrap.dedent("""
                                     ts, by_addr[v.address].sign(sb)))
     validation.verify_commit("c", vals, bid, 3, block.Commit(3, 0, bid, sigs),
                              device="cpu")
+    import importlib, pkgutil, cometbft_tpu_torch
+    for m in pkgutil.walk_packages(cometbft_tpu_torch.__path__,
+                                   "cometbft_tpu_torch."):
+        importlib.import_module(m.name)
+    from cometbft_tpu_torch.ops import cuda_msm, ed25519 as dev
+    msgs = [b"m%d" % i for i in range(4)]
+    packed = ed.pack_rlc([p.pub_key().bytes() for p in privs], msgs,
+                         [p.sign(m) for p, m in zip(privs, msgs)])
+    for major, loop, tree, fold, group in ((0, 1, 0, 1, 1), (1, 1, 0, 1, 4),
+                                           (0, 0, 1, 1, 1), (1, 1, 0, 0, 1),
+                                           (0, 0, 0, 1, 1)):
+        dev.USE_PALLAS_MSM_MAJOR, dev.USE_PALLAS_MSM_LOOP = major, loop
+        dev.USE_PALLAS_TREE, dev.USE_PALLAS_FOLD = tree, fold
+        cuda_msm.WIN_GROUP = group
+        assert ed.rlc_verify(packed, device="cpu")
     loaded = [m for m, mod in sys.modules.items() if mod is not None
               and (m in ("jax", "cometbft_tpu")
                    or m.startswith(("jax.", "cometbft_tpu.")))]

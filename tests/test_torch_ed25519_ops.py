@@ -126,6 +126,26 @@ def test_msm_matches_msm_scan():
     assert _proj(got.numpy()) == _proj(np.array(want))
 
 
+def test_msm_magnitudes_out_of_range_match_msm_scan():
+    """Magnitudes 17, 31 and -1 select row 0, the identity, in K3's
+    plain version as in the JAX select cascade (_select17 in the XLA
+    scan): the partials sum to the JAX scan's point."""
+    _, tab, mags, negs = _msm_inputs(W, 4, 23)
+    mags[0, :3] = (17, 31, -1)
+    mags[2, 5:8] = (-1, 17, 31)
+    negs[2, 5:8] = True
+    want = jdev._msm_scan(jnp.asarray(tab.numpy()), jnp.asarray(mags),
+                          jnp.asarray(negs))
+    parts = cuda_msm.msm_window_major_plain(tab, torch.from_numpy(mags),
+                                            torch.from_numpy(negs))
+    assert _proj(tdev._tree_reduce(parts, 1).numpy()) == _proj(np.array(want))
+    zeroed = mags.copy()
+    zeroed[0, :3] = 0
+    zeroed[2, 5:8] = 0
+    assert torch.equal(parts, cuda_msm.msm_window_major_plain(
+        tab, torch.from_numpy(zeroed), torch.from_numpy(negs)))
+
+
 def test_msm_multiblock_ragged_matches_scalar_sum():
     """Two K3 blocks, the second ragged (40 lanes): the partials' sum is
     sum_i e_i * (-P_i) with e_i the signed digits read MSB-first."""
