@@ -31,8 +31,10 @@ result):
              and for window_loop and grouped_g4 the clean 8,192 batch;
              each must launch exactly its configuration's kernels;
   6. kernels each kernel vs its plain version on the card, at the shapes
-             phases 3-4 gave it (exact integer equality), K5 also vs K3,
-             and K3, K5, K6, K7 on digits with magnitudes outside 0..16;
+             phases 2-4 gave it (exact integer equality; K3 also at the
+             commit's two sides and on a 32-lane slice, where its Horner
+             chain is all the work), K5 also vs K3 (projectively), and K3,
+             K5, K6, K7 on digits with magnitudes outside 0..16;
   7. timing  each kernel's and plain version's median time (CUDA events),
              with the bound the card could reach for the same work.
 The launch counters are reset before phase 2 and read after phase 4
@@ -475,6 +477,8 @@ def phase_window(state, torch):
         reject_s, bad, bad_h = _window_reject(state, val, commits)
     state["window_packed_bad"] = ed.pack_rlc(*_window_items(state, bad))
     state["window_packed"] = ed.pack_rlc(*_window_items(state, commits))
+    state["commit_packed"] = ed.pack_rlc(*_window_items(
+        state, [(5, state["commits"][5])]))
     end = _counts()
     return {"runs": runs, "bad_height": bad_h, "reject_seconds": reject_s,
             "launches": {k: end[k] - start[k] for k in end},
@@ -681,10 +685,20 @@ def phase_kernels(state, torch):
 
     shapes = {}
     for label, packed in (("window", state["window_packed"]),
-                          ("batch", state["batch_packed"])):
+                          ("batch", state["batch_packed"]),
+                          ("commit", state["commit_packed"])):
         t = convert.packed_from_numpy(packed, DEVICE)
         shapes[label] = t
     k2, k3, k5, k6, k7 = [], [], [], [], []
+
+    def k3_case(phase, tab, mg, negs):
+        part = cm.msm_window_major(tab, mg, negs, group=1)
+        e3 = _exact(part, cm.msm_window_major_plain(tab, mg, negs))
+        check(e3 == 0, f"K3 {phase} {tuple(mg.shape)} differs by {e3}")
+        k3.append({"shape": [int(d) for d in mg.shape], "max_abs_err": e3,
+                   "args": (tab, mg, negs), "phase": phase, "partials": part})
+        return part
+
     for label, t in shapes.items():
         for side, (w, mags, negs) in (("A", (t[0], t[2], t[3])),
                                       ("R", (t[1], t[4], t[5]))):
@@ -693,29 +707,33 @@ def phase_kernels(state, torch):
             tab_p = cm.table17_neg_plain(pt)
             e2 = int((tab - tab_p).abs().max())
             check(e2 == 0, f"K2 {label}/{side} differs by {e2}")
-            if side == "A":
+            if side == "A" and label != "commit":
                 k2.append({"shape": [4, 20, pt.shape[-1]], "max_abs_err": e2,
                            "args": (pt,), "phase": label})
+            if label == "commit":          # K3 alone at the commit's sides
+                k3_case(label, tab, mags, negs)
+                if side == "A":            # the Horner chain alone
+                    k3_case("chain only", tab[..., :32].contiguous(),
+                            mags[:, :32].contiguous(),
+                            negs[:, :32].contiguous())
+                continue
             nwin, width = (int(d) for d in mags.shape)
             digit_sets = [(label, mags)]
             if label == "window" and side == "R":
                 digit_sets.append(("digits outside 0..16",
                                    _hostile_digits(torch, mags)))
             for phase, mg in digit_sets:
-                part = cm.msm_window_major(tab, mg, negs, group=1)
-                e3 = _exact(part, cm.msm_window_major_plain(tab, mg, negs))
-                check(e3 == 0, f"K3 {phase}/{side} differs by {e3}")
-                k3.append({"shape": [nwin, width], "max_abs_err": e3,
-                           "args": (tab, mg, negs), "phase": phase,
-                           "partials": part})
+                part = k3_case(phase, tab, mg, negs)
                 for requested in (4, 13):
                     g = cm.group_for(nwin, requested)
                     p5 = cm.msm_window_major_grouped(tab, mg, negs, g)
                     e5 = _exact(p5, cm.msm_window_major_grouped_plain(
                         tab, mg, negs, g))
-                    vs_k3 = _exact(p5, part)
+                    vs_k3 = _proj_err(torch, fe, dev._tree_reduce(p5, 1),
+                                      dev._tree_reduce(part, 1))
                     check(e5 == 0 and vs_k3 == 0, f"K5 {phase}/{side} G {g} "
-                          f"differs from plain by {e5}, from K3 by {vs_k3}")
+                          f"differs from plain by {e5}, its sum from K3's "
+                          f"by {vs_k3}")
                     k5.append({"shape": [nwin, width], "group": g,
                                "max_abs_err": e5, "vs_k3": vs_k3,
                                "args": (tab, mg, negs, g), "phase": phase})
@@ -809,9 +827,10 @@ def _work(name, case):
                 "ed25519_msm_window_major_grouped"):
         mags = case["args"][1]
         nwin, w = mags.shape
-        nblk = -(-w // 32)
+        nout = (cm.msm_geometry(w, nwin)[2]
+                if name == "ed25519_msm_window_major" else -(-w // 32))
         ops = nwin * (w - 1) * ADD + (nwin - 1) * (4 * DBL + DBL_T + ADD)
-        return ops, w * 17 * 320 + nwin * w * 5 + nblk * 320
+        return ops, w * 17 * 320 + nwin * w * 5 + nout * 320
     if name == "ed25519_msm_window_loop":
         mags, blk = case["args"][1], case["args"][3]
         nwin, w = mags.shape

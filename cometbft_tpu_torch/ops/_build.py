@@ -34,9 +34,11 @@ SIGNATURES = {
     "ed25519_kernels": {
         "ed25519_decompress": [_P, _I64, _P, _P, _P],
         "ed25519_table17_neg": [_P, _I64, _P, _P],
-        "ed25519_msm_window_major": [_P, _P, _P, _I64, _I32, _P, _P],
+        "ed25519_msm_window_major": [_P, _P, _P, _I64, _I32, _I32, _I64, _P,
+                                     _P, _P],
         "ed25519_fold_verify": [_P, _I64, _P, _I64, _P, _P],
-        "ed25519_msm_lanes": [],
+        "ed25519_msm_warps": [],
+        "ed25519_chain_threads": [],
         "ed25519_fold_threads": [],
     },
     "ed25519_engines": {

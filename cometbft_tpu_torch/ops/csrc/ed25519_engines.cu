@@ -7,12 +7,12 @@
 //   K6 ed25519_msm_window_loop  <- cometbft_tpu/ops/pallas_msm.py::msm_window_loop
 //   K7 ed25519_select_tree      <- cometbft_tpu/ops/pallas_msm.py::select_tree
 //
-// What bounds them: like K3 (ed25519_kernels.cu), chains of 20-limb int32
-// field products per thread; the window tables are read one row per lane
-// and window, so the bytes are small next to the operations.  One lane
-// (K5) or one output lane (K6, K7) per thread, every point in registers or
-// thread-local memory, no atomics: the result equals the plain torch
-// versions in ops/cuda_msm.py limb for limb.
+// What bounds them: chains of 20-limb int32 field products per thread; the
+// window tables are read one row per lane and window, so the bytes are
+// small next to the operations.  One lane (K5) or one output lane (K6, K7)
+// per thread, every point in registers or thread-local memory, no atomics:
+// the result equals the plain torch versions in ops/cuda_msm.py limb for
+// limb.
 //
 // Every launcher returns cudaGetLastError() of its launch; the Python
 // wrapper raises when it is not 0.
@@ -112,8 +112,8 @@ select_tree_kernel(const int32_t* __restrict__ tab, const int32_t* __restrict__ 
 // ------------------------------------------------------------------ K5
 
 // The window sum of one 32-lane block on one warp: at step s, lane t < s
-// adds the point of lane t + s — K3's shared-memory block_tree order,
-// here through shuffles, so the sum (in lane 0) equals K3's limb for limb.
+// adds the point of lane t + s (the plain version's _block_tree order),
+// through shuffles; the sum is in lane 0.
 __device__ __forceinline__ pt warp_tree(pt p) {
   const int t = threadIdx.x & 31;
 #pragma unroll 1
@@ -131,16 +131,17 @@ __device__ __forceinline__ pt warp_tree(pt p) {
   return p;
 }
 
-// K3 with G = group windows per pass.  On the TPU a group shares one
-// fetch of the table block across G window steps; here a thread reads
-// only its lane's row per window, so there is no table block to share,
-// and the group buys parallelism instead: the block's GROUP_WARPS warps
-// each select and tree-reduce windows g, g + GROUP_WARPS, ... of the
-// group over the block's 32 lanes into the shared scratch wacc[g], then
-// thread 0 closes the group in MSB order with the 5-doublings-then-add
-// chain per window (the first window of the first group sets the
-// accumulator).  The operations and their order are K3's, so the partials
-// equal K3's limb for limb.
+// Window-major Straus with G = group windows per pass, one partial per
+// 32-lane block.  On the TPU a group shares one fetch of the table block
+// across G window steps; here a thread reads only its lane's row per
+// window, so there is no table block to share, and the group buys
+// parallelism instead: the block's GROUP_WARPS warps each select and
+// tree-reduce windows g, g + GROUP_WARPS, ... of the group over the
+// block's 32 lanes into the shared scratch wacc[g], then thread 0 closes
+// the group in MSB order with the 5-doublings-then-add chain per window
+// (the first window of the first group sets the accumulator).  The order
+// does not depend on G: the partials are msm_window_major_grouped_plain's
+// (K3's order before it was redesigned), and their lane sum is K3's MSM.
 // tab: (17, 4, 20, W); mags: (nwin, W) int32; negs: (nwin, W) uint8;
 // out: (4, 20, nblk) partials, nblk = ceil(W / 32); nwin % group == 0;
 // dynamic shared memory: group * 80 int32.

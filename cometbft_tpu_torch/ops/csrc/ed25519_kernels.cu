@@ -9,23 +9,30 @@
 // What bounds them: all four are integer multiply-add chains on
 // registers (a field product is 400 dependent-ish IMADs); they read each
 // input word once and write each output word once, so the bytes are small
-// next to the operations.  The design keeps one lane per thread, the
+// next to the operations.  K1, K2 and K4 keep one lane per thread, the
 // limbs-first (..., 20, W) layout so a warp reads 32 consecutive words per
-// limb, and every intermediate in registers.  Faster radix and tensor-core
-// products are later work.
+// limb, and every intermediate in registers.  K3, whose latency is its
+// serial Horner chain, splits each point operation across a thread quad
+// (fe25519_quad.cuh) and runs its window sums across the whole card.
+// Faster radix and tensor-core products are later work.
 //
-// Every launcher returns cudaGetLastError() of its launch; the Python
-// wrapper raises when it is not 0.
+// Every launcher returns cudaGetLastError() of its launch (of each of its
+// launches); the Python wrapper raises when it is not 0.
 
 #include <cuda_runtime.h>
 #include <cstdint>
 
 #include "fe25519.cuh"
+#include "fe25519_quad.cuh"
 
 using namespace fe25519;
 
-// lanes per K3 block (one warp); ops/cuda_msm.py MSM_LANES mirrors it
-#define MSM_LANES 32
+// warps of a K3 window-sum block, 8 point-holding quads each, and threads
+// of a K3 Horner block (one warp: 8 chains); ops/cuda_msm.py MSM_WARPS
+// and CHAIN_THREADS mirror them
+#define MSM_WARPS 4
+#define MSM_HOLDERS (8 * MSM_WARPS)
+#define CHAIN_THREADS 32
 // threads of the single K4 block; ops/cuda_msm.py FOLD_THREADS mirrors it
 #define FOLD_THREADS 128
 #define DECOMPRESS_THREADS 128
@@ -109,7 +116,7 @@ table17_neg_kernel(const int32_t* __restrict__ pt_in, int64_t w,
   }
 }
 
-// ------------------------------------------------------------------ K3
+// ------------------------------------------------------ block tree (K4)
 
 // Shared-memory copy of one point per thread, [coord*20 + limb][thread],
 // so a warp's stores and loads hit 32 consecutive banks.
@@ -154,36 +161,149 @@ __device__ __forceinline__ pt block_tree(int32_t (*sm)[N], pt p) {
   return p;
 }
 
-// Straus MSM with signed 5-bit windows, MSB-first.  The TPU kernel runs
-// its grid in order and carries one accumulator across grid steps; CUDA
-// blocks run in no order, so each block owns MSM_LANES lanes and keeps
-// its own accumulator over all windows (acc <- 32 acc + window sum is
-// linear in the contributions, so the lane sum of the per-block
-// accumulators is the MSM).  Per window: each thread reads only the row
-// |d| of its lane from the table in global memory (the TPU selects with a
-// 17-way cascade over the whole block), negates X and T if d < 0, the
-// block tree-reduces to one point, and thread 0 runs 5 doublings and the
-// add.  Lanes past W, and magnitudes outside 0..16, contribute the
-// identity.
-// tab: (17, 4, 20, W); mags: (nwin, W) int32; negs: (nwin, W) uint8;
-// out: (4, 20, nblk) partials, nblk = ceil(W / MSM_LANES).
-__global__ void __launch_bounds__(MSM_LANES)
-msm_window_major_kernel(const int32_t* __restrict__ tab,
-                        const int32_t* __restrict__ mags,
-                        const uint8_t* __restrict__ negs, int64_t w, int nwin,
-                        int32_t* __restrict__ out) {
-  __shared__ int32_t sm[4 * NL][MSM_LANES];
-  const int t = threadIdx.x;
-  const int64_t lane = (int64_t)blockIdx.x * MSM_LANES + t;
-  pt acc = identity();
-#pragma unroll 1
-  for (int j = 0; j < nwin; ++j) {
-    pt p = lane < w ? select_signed(tab, mags + (int64_t)j * w, negs + (int64_t)j * w, w, lane)
-                    : identity();
-    p = block_tree<MSM_LANES>(sm, p);
-    if (t == 0) acc = j == 0 ? p : straus_step(acc, p);
+// ------------------------------------------------------------------ K3
+
+// One coordinate of a lane's selected, signed table row (the plain
+// version's _select_signed): row |d| of the lane, X and T negated (plain
+// arithmetic negation) when the sign is set; a magnitude outside 0..16
+// selects row 0, the identity; a lane at or past W is the identity.
+// mags / negs point at one window's (W,) row.
+__device__ __forceinline__ fe load_signed(const int32_t* __restrict__ tab,
+                                          const int32_t* __restrict__ mags,
+                                          const uint8_t* __restrict__ negs, int64_t w,
+                                          int64_t lane, int coord) {
+  if (lane >= w) return fe_small(coord == 1 || coord == 2 ? 1 : 0);
+  int m = mags[lane];
+  if (m < 0 || m > 16) m = 0;
+  fe r = load_fe(tab + (int64_t)m * 4 * NL * w, w, lane, coord);
+  if (negs[lane] && (coord == 0 || coord == 3)) {
+#pragma unroll
+    for (int l = 0; l < NL; ++l) r.v[l] = -r.v[l];
   }
-  if (t == 0) store_point(out, gridDim.x, blockIdx.x, acc);
+  return r;
+}
+
+// Straus MSM with signed 5-bit windows, MSB-first, in two launches.  The
+// TPU kernel runs its grid in order and carries one accumulator: per
+// window the blocks' sums, then the doublings once.  Here the lanes are
+// cut into k chunks of MSM_HOLDERS * rows lanes, and:
+//   1. msm_window_sums_kernel, one block per (window j, chunk c), all in
+//      parallel across the card: S[j][c] = the chunk's selected, signed
+//      rows summed, with no doubling in it;
+//   2. msm_horner_kernel, one quad per chunk: acc = S[0][c], then
+//      acc <- 32 acc + S[j][c] (4 doublings without T, one with T, the
+//      add) for j = 1 .. nwin-1; acc is partial c.
+// The recurrence is linear, so the lane sum of the k partials is the MSM.
+// The chain, (nwin - 1) Straus steps in series, is the latency floor of
+// the method.  Every point operation runs on a thread quad
+// (fe25519_quad.cuh).
+
+// Window sums.  Holder h (quad h of the block) sums the lanes
+// c * chunk + h + i * MSM_HOLDERS, i = 0 .. rows-1, in order: its first
+// row, then one cached add per row.  Each add needs 2d T of its row, the
+// one product of to_cached: a group of four rows computes theirs in one
+// round (thread q for row q of the group) and hands each to thread 2 by
+// shuffle, so an add costs 2.25 product rounds, not 3.  Then the block's
+// holders are halved pairwise (quad t < s adds quad t + s): within each
+// warp by shuffles (s = 4, 2, 1), then across the warps inside warp 0
+// (s = MSM_WARPS/2 .. 1) — the plain version's two _block_tree calls.
+// tab: (17, 4, 20, W); mags: (nwin, W) int32; negs: (nwin, W) uint8;
+// sums: (nwin, 4, 20, k).
+__global__ void __launch_bounds__(MSM_WARPS * 32)
+msm_window_sums_kernel(const int32_t* __restrict__ tab, const int32_t* __restrict__ mags,
+                       const uint8_t* __restrict__ negs, int64_t w, int rows, int64_t k,
+                       int32_t* __restrict__ sums) {
+  __shared__ int32_t sm[MSM_WARPS][4 * NL];
+  const int q = quad_q();
+  const int holder = threadIdx.x >> 2;
+  const int wq = holder & 7;                 // quad within its warp
+  const int warp = threadIdx.x >> 5;
+  const int64_t j = blockIdx.x / k;
+  const int64_t c = blockIdx.x % k;
+  const int32_t* mj = mags + j * w;
+  const uint8_t* nj = negs + j * w;
+  const int64_t base = c * rows * MSM_HOLDERS + holder;
+
+  fe acc = load_signed(tab, mj, nj, w, base, q);
+#pragma unroll 1
+  for (int i0 = 1; i0 < rows; i0 += 4) {
+    const int n = min(4, rows - i0);
+    const int64_t lq = q < n ? base + (int64_t)(i0 + q) * MSM_HOLDERS : w;
+    const fe t2d = mul(load_signed(tab, mj, nj, w, lq, 3), fe_const(D2_LIMBS));
+#pragma unroll 1
+    for (int s = 0; s < n; ++s) {
+      const int64_t lane = base + (int64_t)(i0 + s) * MSM_HOLDERS;
+      const fe u = load_signed(tab, mj, nj, w, lane, q == 3 ? 2 : 0);   // X, or Z
+      const fe y = load_signed(tab, mj, nj, w, lane, 1);
+      const fe d = qshfl(t2d, s);
+      const fe cn = fsel(q == 0, sub(y, u),
+                         fsel(q == 1, add(y, u), fsel(q == 2, d, mul_word(u, 2))));
+      acc = qadd_cached(acc, cn);
+    }
+  }
+
+#pragma unroll 1
+  for (int s = 4; s >= 1; s >>= 1) {
+    const fe r = qpoint_add(acc, qshfl_down(acc, s));
+    acc = fsel(wq < s, r, acc);
+  }
+  if (wq == 0) {
+#pragma unroll
+    for (int l = 0; l < NL; ++l) sm[warp][q * NL + l] = acc.v[l];
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const int src = wq < MSM_WARPS ? wq : 0;
+#pragma unroll
+    for (int l = 0; l < NL; ++l) acc.v[l] = sm[src][q * NL + l];
+#pragma unroll 1
+    for (int s = MSM_WARPS / 2; s >= 1; s >>= 1) {
+      const fe r = qpoint_add(acc, qshfl_down(acc, s));
+      acc = fsel(wq < s, r, acc);
+    }
+    if (wq == 0) store_fe(sums + j * 4 * NL * k, k, c, q, acc);
+  }
+}
+
+// Horner chains, one quad per chunk.  The next window's sum is loaded one
+// step ahead; thread 3 computes its 2d T in the free product slot of the
+// first doubling (no T), so a Straus step is 12 product rounds in series.
+// Thread q loads coordinates X, Y (q < 3) or Z, T (q = 3) of each sum:
+// the ones its round-1 operand of the add needs.
+// sums: (nwin, 4, 20, k); out: (4, 20, k).
+__global__ void __launch_bounds__(CHAIN_THREADS)
+msm_horner_kernel(const int32_t* __restrict__ sums, int nwin, int64_t k,
+                  int32_t* __restrict__ out) {
+  const int q = quad_q();
+  const int64_t chain = (int64_t)blockIdx.x * (CHAIN_THREADS / 4) + (threadIdx.x >> 2);
+  const int64_t c = chain < k ? chain : k - 1;   // spare quads repeat the last chain
+  const int64_t win = 4 * NL * k;
+  const int ca = q == 3 ? 2 : 0;
+  const fe d2 = fe_const(D2_LIMBS);
+  fe acc = load_fe(sums, k, c, q);
+  fe na = acc, nb = acc;
+  if (nwin > 1) {
+    na = load_fe(sums + win, k, c, ca);
+    nb = load_fe(sums + win, k, c, ca + 1);
+  }
+#pragma unroll 1
+  for (int j = 1; j < nwin; ++j) {
+    const fe sa = na, sb = nb;                   // X, Y or Z, T of S[j]
+    if (j + 1 < nwin) {
+      na = load_fe(sums + (j + 1) * win, k, c, ca);
+      nb = load_fe(sums + (j + 1) * win, k, c, ca + 1);
+    }
+    fe t2d;
+    acc = qdouble_side(acc, sb, d2, t2d);
+#pragma unroll 1
+    for (int r = 0; r < 3; ++r) acc = qdouble(acc, false);
+    acc = qdouble(acc, true);
+    const fe d = qshfl(t2d, 3);
+    const fe cn = fsel(q == 0, sub(sb, sa),
+                       fsel(q == 1, add(sb, sa), fsel(q == 2, d, mul_word(sa, 2))));
+    acc = qadd_cached(acc, cn);
+  }
+  if (chain < k) store_fe(out, k, c, q, acc);
 }
 
 // ------------------------------------------------------------------ K4
@@ -232,12 +352,18 @@ int ed25519_table17_neg(const void* pt, int64_t w, void* tab, void* stream) {
   return (int)cudaGetLastError();
 }
 
+// sums: (nwin, 4, 20, k) scratch; k = ceil(W / (MSM_HOLDERS * rows)).
 int ed25519_msm_window_major(const void* tab, const void* mags, const void* negs,
-                             int64_t w, int nwin, void* out, void* stream) {
-  int grid = (int)((w + MSM_LANES - 1) / MSM_LANES);
-  msm_window_major_kernel<<<grid, MSM_LANES, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)tab, (const int32_t*)mags, (const uint8_t*)negs, w, nwin,
-      (int32_t*)out);
+                             int64_t w, int nwin, int rows, int64_t k, void* sums,
+                             void* out, void* stream) {
+  msm_window_sums_kernel<<<(unsigned)(nwin * k), MSM_WARPS * 32, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)tab, (const int32_t*)mags, (const uint8_t*)negs, w, rows, k,
+      (int32_t*)sums);
+  int rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  const int64_t per_block = CHAIN_THREADS / 4;
+  msm_horner_kernel<<<(unsigned)((k + per_block - 1) / per_block), CHAIN_THREADS, 0,
+                      (cudaStream_t)stream>>>((const int32_t*)sums, nwin, k, (int32_t*)out);
   return (int)cudaGetLastError();
 }
 
@@ -248,7 +374,8 @@ int ed25519_fold_verify(const void* pa, int64_t na, const void* pr, int64_t nr,
   return (int)cudaGetLastError();
 }
 
-int ed25519_msm_lanes(void) { return MSM_LANES; }
+int ed25519_msm_warps(void) { return MSM_WARPS; }
+int ed25519_chain_threads(void) { return CHAIN_THREADS; }
 int ed25519_fold_threads(void) { return FOLD_THREADS; }
 
 }  // extern "C"

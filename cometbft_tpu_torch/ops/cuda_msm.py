@@ -11,23 +11,23 @@ adds of 8 products, 1 to_cached product); the 5,440-byte table per lane
 is written once.
 
 K3 `msm_window_major` replaces `pallas_msm.py::msm_window_major`
-(`_window_major_kernel`, pallas_call at :498).  The TPU runs its grid in
-order and carries one accumulator across grid steps; CUDA blocks run in
-no order, so each block owns MSM_LANES lanes and keeps its own
-accumulator over every window (the Straus recurrence is linear, so the
-lane sum of the per-block partials is the MSM).  Per window a thread
-reads only its lane's row |d| from the table in device memory, a
-shared-memory tree reduces the block, and one thread runs the 5
-doublings and the add.  Bound: operations (one point add per lane and
-window, plus 6 point operations per block and window); the serial
-per-block doubling chain is what this first design pays for its
-simplicity.
+(`_window_major_kernel`, pallas_call at :498).  The TPU kernel sums each
+window over all blocks, then runs the doubling chain once on one
+accumulator.  Here the lanes are cut into k chunks (msm_geometry) and
+two launches keep that split: every (window, chunk) sum S[j][c] in
+parallel across the card, with no doubling in it, then one Horner chain
+per chunk, acc <- 32 acc + S[j][c] in MSB order, whose result is
+partial c (the recurrence is linear, so the partials' lane sum is the
+MSM).  Each point operation runs on a thread quad, one coordinate per
+thread, so a Straus step is 12 field products in series rather than
+about 50.  Bound: operations (one point add per lane and window); the
+chain's (nwin - 1) Straus steps are the latency floor of the method.
 
 K5 `msm_window_major_grouped` replaces `msm_window_major(group > 1)`
-(`_window_major_grouped_kernel`, pallas_call at :624): K3's partials,
-with the block's warps reducing the G windows of a group in parallel
-and one thread closing the group.  Same operations in the same order as
-K3, so the two agree limb for limb.
+(`_window_major_grouped_kernel`, pallas_call at :624): partials of
+GROUP_LANES-lane blocks, the block's warps reducing the G windows of a
+group in parallel and one thread closing the group; the order is the
+one K3 ran before its redesign.
 
 K6 `msm_window_loop` replaces `pallas_msm.py::msm_window_loop`
 (`_window_loop_kernel`, pallas_call at :317), and K7 `select_tree`
@@ -65,7 +65,12 @@ import torch
 from . import device as devmod
 from . import fe
 
-MSM_LANES = 32           # lanes per K3 / K5 block: csrc MSM_LANES
+MSM_WARPS = 4            # warps of a K3 window-sum block: csrc MSM_WARPS
+MSM_HOLDERS = 8 * MSM_WARPS   # point-holding quads per K3 window-sum block
+MSM_MAX_ROWS = 32        # most lanes one K3 holder sums per window
+MSM_MIN_BLOCKS = 132     # K3 window-sum blocks to aim for: 1 per H100 SM
+CHAIN_THREADS = 32       # threads of a K3 Horner block: csrc CHAIN_THREADS
+GROUP_LANES = 32         # lanes per K5 block (one warp)
 FOLD_THREADS = 128       # threads of the K4 block: csrc FOLD_THREADS
 LOOP_THREADS = 128       # threads per K6 / K7 block: csrc LOOP_THREADS
 LOOP_MAX_ROWS = 8        # most rows a K6 / K7 thread sums: csrc LOOP_MAX_ROWS
@@ -143,7 +148,8 @@ def _ed():
 
 # each library's block sizes, which the launches below assume
 _LIB_SIZES = {
-    "ed25519_kernels": {"ed25519_msm_lanes": MSM_LANES,
+    "ed25519_kernels": {"ed25519_msm_warps": MSM_WARPS,
+                        "ed25519_chain_threads": CHAIN_THREADS,
                         "ed25519_fold_threads": FOLD_THREADS},
     "ed25519_engines": {"ed25519_loop_threads": LOOP_THREADS,
                         "ed25519_loop_max_rows": LOOP_MAX_ROWS,
@@ -194,12 +200,12 @@ table17_neg.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# K3: window-major Straus MSM -> per-block partials
+# K3: window-major Straus MSM -> one partial per lane chunk
 # ---------------------------------------------------------------------------
 
 def _block_tree(pts: torch.Tensor) -> torch.Tensor:
     """(4, 20, ..., n) -> (4, 20, ...) by pairwise halving, lane i adding
-    lane i + half — the kernels' shared-memory tree order."""
+    lane i + half — the kernels' tree order."""
     ed = _ed()
     width = pts.shape[-1]
     while width > 1:
@@ -221,25 +227,47 @@ def _select_signed(tab, mag, neg, lanes: int):
     return pts
 
 
-def _window_sums(tab, mag, neg):
-    """One window's per-32-lane-block sums, (4, 20, ceil(W / 32))."""
-    nblk = -(-tab.shape[-1] // MSM_LANES)
-    pts = _select_signed(tab, mag, neg, nblk * MSM_LANES)
-    return _block_tree(pts.reshape(4, fe.NLIMBS, nblk, MSM_LANES))
+def msm_geometry(w: int, nwin: int):
+    """K3's (rows, chunk, k) at width w and nwin windows: each of the
+    MSM_HOLDERS holders of a chunk sums `rows` lanes, a chunk is
+    MSM_HOLDERS * rows lanes, k = ceil(w / chunk) chunks and partials.
+    rows is the largest power of two up to MSM_MAX_ROWS that still gives
+    nwin * k >= MSM_MIN_BLOCKS window-sum blocks, else 1."""
+    rows = MSM_MAX_ROWS
+    while rows > 1 and nwin * -(-w // (MSM_HOLDERS * rows)) < MSM_MIN_BLOCKS:
+        rows //= 2
+    chunk = MSM_HOLDERS * rows
+    return rows, chunk, -(-w // chunk)
 
 
-def _window_major(tab, mags, negs):
-    acc = _window_sums(tab, mags[0], negs[0])
-    for j in range(1, mags.shape[0]):
-        acc = _ed().straus_step(acc, _window_sums(tab, mags[j], negs[j]))
-    return acc
+def msm_window_sums_plain(tab, mags, negs):
+    """(17, 4, 20, W) tables, (nwin, W) digits -> (4, 20, nwin, k): the
+    kernel's window sums.  Holder h of chunk c sums lanes
+    c * chunk + i * MSM_HOLDERS + h for i = 0 .. rows-1 in order; the
+    holders are halved pairwise within each warp's 8, then across the
+    MSM_WARPS warps."""
+    nwin, w = mags.shape
+    rows, chunk, k = msm_geometry(w, nwin)
+    pts = torch.stack([_select_signed(tab, mags[j], negs[j], k * chunk)
+                       for j in range(nwin)], dim=2)
+    pts = pts.reshape(4, fe.NLIMBS, nwin, k, rows, MSM_HOLDERS)
+    acc = pts[..., 0, :]
+    for i in range(1, rows):
+        acc = _ed().point_add(acc, pts[..., i, :])
+    acc = acc.reshape(4, fe.NLIMBS, nwin, k, MSM_WARPS, 8)
+    return _block_tree(_block_tree(acc))
 
 
 def msm_window_major_plain(tab, mags, negs):
     """(17, 4, 20, W) negated tables, (nwin, W) magnitudes and signs,
-    MSB-first -> (4, 20, ceil(W / MSM_LANES)) partials whose lane sum is
-    sum_i e_i * (-P_i)."""
-    return _window_major(tab, mags, negs)
+    MSB-first -> (4, 20, k) partials, k from msm_geometry, whose lane
+    sum is sum_i e_i * (-P_i): the window sums, then per chunk the
+    Horner chain acc <- straus_step(acc, S[j]) in window order."""
+    sums = msm_window_sums_plain(tab, mags, negs)
+    acc = sums[:, :, 0]
+    for j in range(1, sums.shape[2]):
+        acc = _ed().straus_step(acc, sums[:, :, j])
+    return acc
 
 
 def _require_msm(tab, mags, negs):
@@ -264,14 +292,16 @@ def msm_window_major(tab, mags, negs, group=None):
         return msm_window_major_plain(tab, mags, negs)
     tab, mags, negs = _require_msm(tab, mags, negs)
     w, nwin = tab.shape[-1], mags.shape[0]
-    nblk = -(-w // MSM_LANES)
-    out = torch.empty((4, fe.NLIMBS, nblk), dtype=torch.int32,
+    rows, _, k = msm_geometry(w, nwin)
+    sums = torch.empty((nwin, 4, fe.NLIMBS, k), dtype=torch.int32,
+                       device=tab.device)
+    out = torch.empty((4, fe.NLIMBS, k), dtype=torch.int32,
                       device=tab.device)
     lib = _lib()
     with torch.cuda.device(tab.device):
         rc = lib.ed25519_msm_window_major(
             devmod.ptr(tab), devmod.ptr(mags), devmod.ptr(negs), w, nwin,
-            devmod.ptr(out), devmod.stream(tab))
+            rows, k, devmod.ptr(sums), devmod.ptr(out), devmod.stream(tab))
     devmod.check_launch(rc, "ed25519_msm_window_major")
     msm_window_major.launches += 1
     return out
@@ -281,15 +311,21 @@ msm_window_major.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# K5: grouped window-major MSM -> K3's partials
+# K5: grouped window-major MSM -> one partial per 32-lane block
 # ---------------------------------------------------------------------------
 
 def msm_window_major_grouped_plain(tab, mags, negs, group: int):
-    """K3's partials: the grouped kernel runs K3's operations in K3's
-    order (each window's 32-lane tree, then the windows closed in MSB
-    order), only scheduled group by group, so its plain version is
-    K3's."""
-    return _window_major(tab, mags, negs)
+    """(4, 20, ceil(W / 32)) partials: each 32-lane block's window tree
+    (lane t adding lane t + s), then the windows closed in MSB order with
+    one accumulator per block.  The grouped kernel only schedules these
+    operations group by group, so the group does not change the result."""
+    nblk = -(-tab.shape[-1] // GROUP_LANES)
+    acc = None
+    for j in range(mags.shape[0]):
+        pts = _select_signed(tab, mags[j], negs[j], nblk * GROUP_LANES)
+        sums = _block_tree(pts.reshape(4, fe.NLIMBS, nblk, GROUP_LANES))
+        acc = sums if acc is None else _ed().straus_step(acc, sums)
+    return acc
 
 
 def msm_window_major_grouped(tab, mags, negs, group: int):
@@ -301,8 +337,8 @@ def msm_window_major_grouped(tab, mags, negs, group: int):
         return msm_window_major_grouped_plain(tab, mags, negs, group)
     tab, mags, negs = _require_msm(tab, mags, negs)
     w = tab.shape[-1]
-    out = torch.empty((4, fe.NLIMBS, -(-w // MSM_LANES)), dtype=torch.int32,
-                      device=tab.device)
+    out = torch.empty((4, fe.NLIMBS, -(-w // GROUP_LANES)),
+                      dtype=torch.int32, device=tab.device)
     lib = _lib("ed25519_engines")
     with torch.cuda.device(tab.device):
         rc = lib.ed25519_msm_window_major_grouped(

@@ -113,8 +113,9 @@ def _msm_inputs(w, nwin, seed):
 
 
 def test_msm_matches_msm_scan():
-    """K3's plain version (per-block partials over MSM_LANES lanes, the
-    kernel's tree order) sums to the JAX shared-doubling scan."""
+    """K3's plain version (one partial per lane chunk: window sums, then
+    one Horner chain per chunk, in the kernel's order) sums to the JAX
+    shared-doubling scan."""
     _, tab, mags, negs = _msm_inputs(W, 4, 13)
     want = jdev._msm_scan(jnp.asarray(tab.numpy()), jnp.asarray(mags),
                           jnp.asarray(negs))
@@ -147,8 +148,8 @@ def test_msm_magnitudes_out_of_range_match_msm_scan():
 
 
 def test_msm_multiblock_ragged_matches_scalar_sum():
-    """Two K3 blocks, the second ragged (40 lanes): the partials' sum is
-    sum_i e_i * (-P_i) with e_i the signed digits read MSB-first."""
+    """Two K3 lane chunks, the second ragged (40 lanes): the partials' sum
+    is sum_i e_i * (-P_i) with e_i the signed digits read MSB-first."""
     w, nwin = 40, 3
     pts, tab, mags, negs = _msm_inputs(w, nwin, 7)
     parts = cuda_msm.msm_window_major(tab, torch.from_numpy(mags),

@@ -6,7 +6,8 @@ ops/cuda_msm.py, which the CPU wrappers run.
 
 K6's and K7's partials are held against the Pallas kernels in interpret
 mode output lane by output lane, at canonical values (frozen, affine);
-K5's equal K3's limb for limb and sum to the JAX XLA scan; the RLC
+K5's equal its 32-lane per-block order limb for limb and sum, as K3's
+partials do, to the JAX XLA scan; the RLC
 verdicts under every configuration equal the JAX rlc_verify_kernel's on
 the same packed inputs."""
 
@@ -256,6 +257,23 @@ def test_window_loop_is_select_tree_recurrence(monkeypatch):
 
 # -- K5: grouped window-major ---------------------------------------------------
 
+def _per_block_order(tab, mags, negs):
+    """K5's order: per window, each 32-lane block's pairwise halving tree
+    (lanes past W the identity); per block, the windows closed in MSB
+    order by the Straus step."""
+    nwin, w = mags.shape
+    nblk = -(-w // 32)
+    acc = None
+    for j in range(nwin):
+        pts = tdev._cond_neg_point(tdev._select17(tab, torch.from_numpy(
+            mags[j])), torch.from_numpy(negs[j]))
+        pts = torch.cat([pts, tdev.identity_point((nblk * 32 - w,), "cpu")],
+                        dim=-1).reshape(4, 20, nblk, 32)
+        sums = tdev._tree_reduce(pts, 1)[..., 0]
+        acc = sums if acc is None else tdev.straus_step(acc, sums)
+    return acc
+
+
 @pytest.fixture(scope="module")
 def group_case():
     tab, mags, negs = _msm_inputs(GROUP_W, GROUP_NWIN, 17)
@@ -263,7 +281,8 @@ def group_case():
                           jnp.asarray(negs))
     k3 = cuda_msm.msm_window_major(tab, torch.from_numpy(mags),
                                    torch.from_numpy(negs), group=1)
-    return tab, mags, negs, _proj(np.asarray(want)), k3
+    return (tab, mags, negs, _proj(np.asarray(want)), k3,
+            _per_block_order(tab, mags, negs))
 
 
 @pytest.mark.parametrize("requested, group", [(2, 2), (3, 3), (4, 3), (6, 6)])
@@ -271,8 +290,9 @@ def test_grouped_equals_window_major(group_case, monkeypatch, requested,
                                      group):
     """WIN_GROUP = requested routes msm_window_major to K5 with
     group_for's group (4 degrades to 3 at 6 windows); K5's partials equal
-    K3's limb for limb and sum to the JAX XLA scan."""
-    tab, mags, negs, want, k3 = group_case
+    its per-block order limb for limb, and they and K3's sum to the JAX
+    XLA scan."""
+    tab, mags, negs, want, k3, k5_order = group_case
     calls = []
     real = cuda_msm.msm_window_major_grouped_plain
 
@@ -286,14 +306,15 @@ def test_grouped_equals_window_major(group_case, monkeypatch, requested,
                                     torch.from_numpy(negs))
     assert calls == [group]
     assert got.shape == (4, 20, 2)
-    assert torch.equal(got, k3)
+    assert torch.equal(got, k5_order)
     assert _proj(tdev._tree_reduce(got, 1).numpy()) == want
+    assert _proj(tdev._tree_reduce(k3, 1).numpy()) == want
 
 
 def test_window_major_ignores_magnitudes_out_of_range(group_case):
     """Magnitudes 17, 31 and -1 select the identity: the same partials
     as digit 0 there."""
-    tab, mags, negs, _, k3 = group_case
+    tab, mags, negs, _, k3, _ = group_case
     zeroed = mags.copy()
     zeroed[1, :3] = 0
     got = cuda_msm.msm_window_major(tab, torch.from_numpy(zeroed),
