@@ -8,7 +8,8 @@ its CUDA kernels against its plain torch version.
 Phases (one JSON line each; any failure exits non-zero and prints no
 result):
   1. build   compile ops/csrc/*.cu with nvcc (one nvcc per source, in
-             parallel) and print the card's name and power limit;
+             parallel), print the card's name and power limit, and
+             report each kernel's registers and spills (ptxas -v);
   2. commit  one 150-validator commit through verify_commit_light on the
              card: accept, one tampered signature (ErrInvalidSignature
              naming its index), a commit below +2/3;
@@ -31,12 +32,16 @@ result):
              and for window_loop and grouped_g4 the clean 8,192 batch;
              each must launch exactly its configuration's kernels;
   6. kernels each kernel vs its plain version on the card, at the shapes
-             phases 2-4 gave it (exact integer equality; K3 also at the
-             commit's two sides and on a 32-lane slice, where its Horner
-             chain is all the work), K5 also vs K3 (projectively), and K3,
-             K5, K6, K7 on digits with magnitudes outside 0..16;
-  7. timing  each kernel's and plain version's median time (CUDA events),
-             with the bound the card could reach for the same work.
+             phases 2-4 gave it (exact integer equality; K1 at the four
+             main-path widths and on hostile encodings, K1 and K2 also at
+             the ragged widths 1, 7 and 129; K3 also at the commit's two
+             sides and on a 32-lane slice, where its Horner chain is all
+             the work), K5 also vs K3 (projectively), and K3, K5, K6, K7
+             on digits with magnitudes outside 0..16;
+  7. timing  each kernel's median time over runs of 10 launches back to
+             back and each plain version's median time per call (CUDA
+             events), with the bound the card could reach for the same
+             work.
 The launch counters are reset before phase 2 and read after phase 4
 (the default engine: every one of K1-K4 must launch there, none of
 K5-K7), and reset before and read after each configuration of phase 5.
@@ -230,15 +235,52 @@ def phase_build(state, torch):
     _build.build(sources)
     for name in sources:
         _build.load(name)
-    ptxas = [ln.strip() for name in sources
-             for ln in _build.build_info[name]["log"].splitlines()
-             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+    ptxas = {}
+    for name in sources:
+        ptxas.update(_ptxas(_build.build_info[name]["log"]))
     clock = nvidia_smi("clocks.max.sm").split()[0]
     state["sm_clock_hz"] = float(clock) * 1e6
     state["card"] = card
     return {"card": card, "build_seconds": time.perf_counter() - t0,
             "sources": sources, "max_sm_clock_mhz": float(clock),
             "ptxas": ptxas}
+
+
+def _ptxas(log: str) -> dict:
+    """{kernel or device function: {"registers", "spill_stores",
+    "spill_loads"}} from nvcc -Xptxas -v output (a kernel's name led by
+    its identifier, a device function's mangled name as it is)."""
+    import re
+
+    def name(mangled):
+        m = re.match(r"_Z(\d+)", mangled)
+        if not m:
+            return mangled
+        ident = mangled[m.end():m.end() + int(m.group(1))]
+        return f"{ident} ({mangled})"
+
+    out, cur = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            cur = m.group(1)
+            out.setdefault(cur, {})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m and cur is not None:
+            out[cur].update(spill_stores=int(m.group(1)),
+                            spill_loads=int(m.group(2)))
+            continue
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            cur = m.group(1)
+            out.setdefault(cur, {})
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and cur is not None:
+            out[cur]["registers"] = int(m.group(1))
+    return {name(k): v for k, v in out.items()}
 
 
 # -- fixtures ------------------------------------------------------------------
@@ -663,6 +705,11 @@ def _exact(a, b):
     return int((a - b).abs().max())
 
 
+# the sides at which K1 is compared and timed: the main path's widths
+# 128, 5120, 10240 and 8192 (K2 is, at every side)
+K1_SIDES = {("commit", "A"), ("window", "R"), ("batch", "A"), ("batch", "R")}
+
+
 def phase_kernels(state, torch):
     from cometbft_tpu_torch import convert
     from cometbft_tpu_torch.ops import cuda_decompress as cd
@@ -672,16 +719,33 @@ def phase_kernels(state, torch):
 
     saved = _counts()
     cases = {}
+    k1, k2 = [], []
+
+    def k1_case(phase, words):
+        pk, okk = cd.decompress(words)
+        pp, okp = cd.decompress_plain(words)
+        err = int((pk - pp).abs().max()) + int((okk != okp).sum())
+        check(err == 0, f"K1 {phase} {tuple(words.shape)} differs from plain "
+              f"by {err}")
+        k1.append({"shape": [8, int(words.shape[-1])], "max_abs_err": err,
+                   "args": (words,), "phase": phase})
+        return pk, okk
+
+    def k2_case(phase, pt):
+        e2 = _exact(cm.table17_neg(pt), cm.table17_neg_plain(pt))
+        check(e2 == 0, f"K2 {phase} {tuple(pt.shape)} differs by {e2}")
+        k2.append({"shape": [4, 20, int(pt.shape[-1])], "max_abs_err": e2,
+                   "args": (pt,), "phase": phase})
+
     words = _hostile_words(state, torch)
-    pk, okk = cd.decompress(words)
-    pp, okp = cd.decompress_plain(words)
-    err = int((pk - pp).abs().max()) + int((okk != okp).sum())
-    check(err == 0, f"K1 differs from plain by {err}")
+    _, okk = k1_case("hostile", words)
     check(not bool(okk[10]) and not bool(okk[11]) and bool(okk[12]),
           "hostile lanes decoded wrongly")
-    cases["ed25519_decompress"] = [{"shape": [8, words.shape[-1]],
-                                    "max_abs_err": err,
-                                    "args": (words,)}]
+    # ragged widths: a part of a warp, a part of a block, one lane past a
+    # block; the first two hold the hostile lanes 10-13
+    for lo, hi in ((10, 11), (10, 17), (0, 129)):
+        pt, _ = k1_case("ragged", words[:, lo:hi].contiguous())
+        k2_case("ragged", pt)
 
     shapes = {}
     for label, packed in (("window", state["window_packed"]),
@@ -689,7 +753,7 @@ def phase_kernels(state, torch):
                           ("commit", state["commit_packed"])):
         t = convert.packed_from_numpy(packed, DEVICE)
         shapes[label] = t
-    k2, k3, k5, k6, k7 = [], [], [], [], []
+    k3, k5, k6, k7 = [], [], [], []
 
     def k3_case(phase, tab, mg, negs):
         part = cm.msm_window_major(tab, mg, negs, group=1)
@@ -702,14 +766,12 @@ def phase_kernels(state, torch):
     for label, t in shapes.items():
         for side, (w, mags, negs) in (("A", (t[0], t[2], t[3])),
                                       ("R", (t[1], t[4], t[5]))):
-            pt, _ = cd.decompress(w)
+            if (label, side) in K1_SIDES:
+                pt, _ = k1_case(f"{label} {side}", w)
+            else:
+                pt, _ = cd.decompress(w)
+            k2_case(f"{label} {side}", pt)
             tab = cm.table17_neg(pt)
-            tab_p = cm.table17_neg_plain(pt)
-            e2 = int((tab - tab_p).abs().max())
-            check(e2 == 0, f"K2 {label}/{side} differs by {e2}")
-            if side == "A" and label != "commit":
-                k2.append({"shape": [4, 20, pt.shape[-1]], "max_abs_err": e2,
-                           "args": (pt,), "phase": label})
             if label == "commit":          # K3 alone at the commit's sides
                 k3_case(label, tab, mags, negs)
                 if side == "A":            # the Horner chain alone
@@ -757,6 +819,7 @@ def phase_kernels(state, torch):
                                "max_abs_err": e7,
                                "args": (tab, mg[j], negs[j], blk),
                                "phase": phase})
+    cases["ed25519_decompress"] = k1
     cases["ed25519_table17_neg"] = k2
     cases["ed25519_msm_window_major"] = k3
     cases["ed25519_msm_window_major_grouped"] = k5
@@ -794,7 +857,11 @@ def phase_kernels(state, torch):
 
 # -- phase 7: timing -------------------------------------------------------------
 
-def _time(torch, fn, args, reps):
+def _time(torch, fn, args, reps, inner=1):
+    """Median over reps of the CUDA-event time of `inner` calls made back
+    to back, divided by inner: with inner > 1 the launches queue behind
+    each other, which hides the wrapper's host time wherever a launch
+    takes longer than it."""
     fn(*args)
     torch.cuda.synchronize()
     times = []
@@ -802,10 +869,11 @@ def _time(torch, fn, args, reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn(*args)
+        for _ in range(inner):
+            fn(*args)
         b.record()
         torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / inner)
     times.sort()
     return times[len(times) // 2]
 
@@ -866,7 +934,7 @@ def phase_timing(state, torch):
     for name, fn in _kernels().items():
         shapes = []
         for case in state["cases"][name]:
-            ms = _time(torch, fn, case["args"], 10)
+            ms = _time(torch, fn, case["args"], 7, inner=10)
             plain_ms = _time(torch, plain[name], case["args"], 3)
             ops, nbytes = _work(name, case)
             t_ops, t_bytes = ops / peak_ops * 1e3, nbytes / HBM_BYTES_PER_S * 1e3

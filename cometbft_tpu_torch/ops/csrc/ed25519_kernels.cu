@@ -9,12 +9,16 @@
 // What bounds them: all four are integer multiply-add chains on
 // registers (a field product is 400 dependent-ish IMADs); they read each
 // input word once and write each output word once, so the bytes are small
-// next to the operations.  K1, K2 and K4 keep one lane per thread, the
-// limbs-first (..., 20, W) layout so a warp reads 32 consecutive words per
-// limb, and every intermediate in registers.  K3, whose latency is its
-// serial Horner chain, splits each point operation across a thread quad
-// (fe25519_quad.cuh) and runs its window sums across the whole card.
-// Faster radix and tensor-core products are later work.
+// next to the operations.  All keep the limbs-first (..., 20, W) layout,
+// so a warp reads consecutive words per limb, and every intermediate in
+// registers.  One thread per lane leaves most of the card idle at the
+// main path's widths and runs each lane's chain at one warp's instruction
+// rate, so: K2 and K3 split each point operation across a thread quad
+// (fe25519_quad.cuh), one coordinate per thread; K1, whose chain is
+// single field products in series, splits each product across a thread
+// quad (fe25519_split.cuh); K3 also runs its window sums across
+// the whole card.  K4 keeps one thread per partial.  Faster radix and
+// tensor-core products are later work.
 //
 // Every launcher returns cudaGetLastError() of its launch (of each of its
 // launches); the Python wrapper raises when it is not 0.
@@ -24,6 +28,7 @@
 
 #include "fe25519.cuh"
 #include "fe25519_quad.cuh"
+#include "fe25519_split.cuh"
 
 using namespace fe25519;
 
@@ -40,16 +45,25 @@ using namespace fe25519;
 
 // ------------------------------------------------------------------ K1
 
-// ZIP-215 decompression of one 32-byte encoding per thread: y from bits
-// 0..254, u = y^2 - 1, v = d y^2 + 1, r = u v^3 (u v^7)^((p-5)/8), the
-// sqrt(-1) fix-up, reject x = 0 with sign 1, sign fix, T = X Y.
+// ZIP-215 decompression of one 32-byte encoding per thread quad: y from
+// bits 0..254, u = y^2 - 1, v = d y^2 + 1, r = u v^3 (u v^7)^((p-5)/8),
+// the sqrt(-1) fix-up, reject x = 0 with sign 1, sign fix, T = X Y.  Every field product of
+// the chain is split across the quad (fe25519_split.cuh); the linear
+// steps, freeze, eq and the sign fix run replicated on every thread of
+// the quad.  r sqrt(-1) is computed on every lane and kept where the
+// fix-up applies.  Thread r stores coordinate r of the point and thread
+// 0 the ok flag.  Spare quads past W decode lane W - 1 and store
+// nothing.
 // words: (8, W) int32 bit patterns of LE uint32 words; pt: (4, 20, W);
 // ok: (W,) int32.
 __global__ void __launch_bounds__(DECOMPRESS_THREADS)
 decompress_kernel(const int32_t* __restrict__ words, int64_t w,
                   int32_t* __restrict__ pt_out, int32_t* __restrict__ ok_out) {
-  int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= w) return;
+  using S = split;
+  using E = S::elem;
+  const int64_t slot = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) / S::G;
+  const int64_t lane = slot < w ? slot : w - 1;
+  const int rk = S::rank();
   uint32_t wd[8];
 #pragma unroll
   for (int j = 0; j < 8; ++j) wd[j] = (uint32_t)words[j * w + lane];
@@ -63,18 +77,21 @@ decompress_kernel(const int32_t* __restrict__ words, int64_t w,
     if (r + RADIX > 32 && j + 1 < 8) v |= wd[j + 1] << (32 - r);
     y.v[i] = (int32_t)(v & (i < NL - 1 ? (uint32_t)MASK : 0xFFu));
   }
-  fe one = fe_small(1);
-  fe y2 = sqr(y);
-  fe u = sub(y2, one);
-  fe v = add(mul(y2, fe_const(D_LIMBS)), one);
+  const fe one = fe_small(1);
+  const E y2 = S::sqr(S::own(y));
+  const fe u = sub(y2.x, one);
+  const fe v = add(S::mul(y2, fe_const(D_LIMBS)).x, one);
+  const E ve = S::own(v);
+  const E ue = S::own(u);
 
-  fe v3 = mul(sqr(v), v);
-  fe v7 = mul(sqr(v3), v);
-  fe r = mul(mul(u, v3), pow_p58(mul(u, v7)));
-  fe check = mul(v, sqr(r));
-  bool correct = eq(check, u);
-  bool flipped = eq(check, neg(u));
-  fe x = flipped ? mul(r, fe_const(SQRT_M1_LIMBS)) : r;
+  const E v3 = S::mul(S::sqr(ve), v);
+  const E v7 = S::mul(S::sqr(v3), v);
+  const E r = S::mul(S::mul(ue, v3.x), S::pow_p58(S::mul(ue, v7.x)).x);
+  const fe check = S::mul(ve, S::sqr(r).x).x;
+  const bool correct = eq(check, u);
+  const bool flipped = eq(check, neg(u));
+  const fe rm = S::mul(r, fe_const(SQRT_M1_LIMBS)).x;
+  fe x = flipped ? rm : r.x;
   bool ok = correct || flipped;
 
   fe xf = freeze(x);
@@ -83,36 +100,41 @@ decompress_kernel(const int32_t* __restrict__ words, int64_t w,
   for (int i = 0; i < NL; ++i) any |= xf.v[i];
   ok = ok && !(any == 0 && sign == 1);
   if ((xf.v[0] & 1) != sign) x = neg(x);
-  pt p;
-  p.X = x;
-  p.Y = y;
-  p.Z = one;
-  p.T = mul(x, y);
-  store_point(pt_out, w, lane, p);
-  ok_out[lane] = ok ? 1 : 0;
+  const fe t = S::mul(S::own(x), y).x;
+  if (slot < w) {
+    store_fe(pt_out, w, lane, rk, fsel(rk == 0, x, fsel(rk == 1, y, fsel(rk == 2, one, t))));
+    if (rk == 0) ok_out[lane] = ok ? 1 : 0;
+  }
 }
 
 // ------------------------------------------------------------------ K2
 
-// Rows k * (-P), k = 0..16, of one point per thread: identity, -P, then
-// 15 cached adds.  pt: (4, 20, W); tab: (17, 4, 20, W).
+// Rows k * (-P), k = 0..16, of one point per thread quad
+// (fe25519_quad.cuh): thread q loads coordinate q and negates X and T,
+// gets its coordinate of to_cached(-P) once, then runs the 15 cached adds
+// in series, storing its coordinate of each row.  Spare quads past W
+// build lane W - 1's table and store nothing.
+// pt: (4, 20, W); tab: (17, 4, 20, W).
 __global__ void __launch_bounds__(TABLE_THREADS)
 table17_neg_kernel(const int32_t* __restrict__ pt_in, int64_t w,
                    int32_t* __restrict__ tab) {
-  int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= w) return;
+  const int q = quad_q();
+  const int64_t slot = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 2;
+  const int64_t lane = slot < w ? slot : w - 1;
+  const bool live = slot < w;
   const int64_t row = 4 * NL * w;
-  pt p = load_point(pt_in, w, lane);
-  p.X = neg(p.X);
-  p.T = neg(p.T);
-  store_point(tab, w, lane, identity());
-  store_point(tab + row, w, lane, p);
-  pt pc = to_cached(p);
-  pt cur = p;
+  fe x = load_fe(pt_in, w, lane, q);
+  x = fsel(q == 0 || q == 3, neg(x), x);
+  if (live) {
+    store_fe(tab, w, lane, q, fe_small(q == 1 || q == 2 ? 1 : 0));
+    store_fe(tab + row, w, lane, q, x);
+  }
+  const fe cn = q_cached_operand(x);
+  fe cur = x;
 #pragma unroll 1
   for (int k = 2; k < 17; ++k) {
-    cur = add_cached(cur, pc);
-    store_point(tab + k * row, w, lane, cur);
+    cur = qadd_cached(cur, cn);
+    if (live) store_fe(tab + k * row, w, lane, q, cur);
   }
 }
 
@@ -339,14 +361,16 @@ fold_verify_kernel(const int32_t* __restrict__ pa, int64_t na,
 extern "C" {
 
 int ed25519_decompress(const void* words, int64_t w, void* pt, void* ok, void* stream) {
-  int grid = (int)((w + DECOMPRESS_THREADS - 1) / DECOMPRESS_THREADS);
+  const int64_t per_block = DECOMPRESS_THREADS / split::G;
+  int grid = (int)((w + per_block - 1) / per_block);
   decompress_kernel<<<grid, DECOMPRESS_THREADS, 0, (cudaStream_t)stream>>>(
       (const int32_t*)words, w, (int32_t*)pt, (int32_t*)ok);
   return (int)cudaGetLastError();
 }
 
 int ed25519_table17_neg(const void* pt, int64_t w, void* tab, void* stream) {
-  int grid = (int)((w + TABLE_THREADS - 1) / TABLE_THREADS);
+  const int64_t per_block = TABLE_THREADS / 4;
+  int grid = (int)((w + per_block - 1) / per_block);
   table17_neg_kernel<<<grid, TABLE_THREADS, 0, (cudaStream_t)stream>>>(
       (const int32_t*)pt, w, (int32_t*)tab);
   return (int)cudaGetLastError();

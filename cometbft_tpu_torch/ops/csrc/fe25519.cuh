@@ -134,28 +134,6 @@ __device__ __forceinline__ fe sqr(const fe& a) {
   return prod_tail(c);
 }
 
-__device__ __noinline__ fe sq_n(fe x, int n) {
-#pragma unroll 1
-  for (int i = 0; i < n; ++i) x = sqr(x);
-  return x;
-}
-
-// z^((p-5)/8), the chain of ops/fe.py pow_p58
-__device__ __noinline__ fe pow_p58(const fe& z) {
-  fe z2 = sqr(z);
-  fe z9 = mul(sq_n(z2, 2), z);
-  fe z11 = mul(z9, z2);
-  fe z2_5_0 = mul(sqr(z11), z9);
-  fe z2_10_0 = mul(sq_n(z2_5_0, 5), z2_5_0);
-  fe z2_20_0 = mul(sq_n(z2_10_0, 10), z2_10_0);
-  fe z2_40_0 = mul(sq_n(z2_20_0, 20), z2_20_0);
-  fe z2_50_0 = mul(sq_n(z2_40_0, 10), z2_10_0);
-  fe z2_100_0 = mul(sq_n(z2_50_0, 50), z2_50_0);
-  fe z2_200_0 = mul(sq_n(z2_100_0, 100), z2_100_0);
-  fe z2_250_0 = mul(sq_n(z2_200_0, 50), z2_50_0);
-  return mul(sq_n(z2_250_0, 2), z);
-}
-
 // ------------------------------------------------------- canonical form
 
 // exact ripple over the limbs; returns the carry out of limb 19

@@ -7,7 +7,8 @@
 // products; here each round computes its four products at once, one per
 // thread, with fe25519.cuh's own mul / sqr / carry, and the operands move
 // inside the quad with __shfl_sync.  Every linear step (add, sub, mul_word)
-// is the sequential formula's own, on the same operands, so a quad's result
+// is the sequential formula's own, on the same operands (add_signed forms
+// add or sub per thread with the same limbs), so a quad's result
 // equals point_double / add_cached limb for limb.  A point operation costs
 // 2 products in series instead of 8, and a thread holds 20 limbs of the
 // point instead of 80.
@@ -101,21 +102,31 @@ __device__ __forceinline__ fe qdouble_side(const fe& x, const fe& side_a, const 
   return qdouble_impl<true>(x, false, side_a, side_b, side);
 }
 
+// carry(p + s q) for s = 1 or -1: add(p, q) or sub(p, q), limb for limb,
+// with the sign chosen per thread
+__device__ __forceinline__ fe add_signed(const fe& p, const fe& q, int32_t s) {
+  fe t;
+#pragma unroll
+  for (int l = 0; l < NL; ++l) t.v[l] = p.v[l] + s * q.v[l];
+  return carry(t);
+}
+
 // P + Q as add_cached(p, q), where thread q of the quad passes `cn`, the
 // one coordinate of cached Q its round-1 product needs: Y-X on thread 0,
 // Y+X on thread 1, 2d T on thread 2, 2 Z on thread 3.  Round 1:
-// (Y-X)(Y-X)', (Y+X)(Y+X)', T (2dT)', Z (2Z)'; round 2 as point_double's.
+// (Y-X)(Y-X)', (Y+X)(Y+X)', T (2dT)', Z (2Z)' = a, b, c, d on threads
+// 0-3; round 2 as point_double's, X = e f, Y = g h, Z = f g, T = e h with
+// e = b - a, f = d - c, g = d + c, h = b + a: each thread fetches the two
+// products of each of its operands and forms only those two.
 __device__ __forceinline__ fe qadd_cached(const fe& x, const fe& cn) {
   const int q = quad_q();
   const fe o = qshfl(x, q ^ 1);        // thread 0: Y, 1: X, 2: T, 3: Z
-  const fe lin = fsel(q == 0, sub(o, x), add(x, o));
+  const fe lin = add_signed(o, x, q == 0 ? -1 : 1);   // Y - X, X + Y
   const fe r = mul(fsel(q < 2, lin, o), cn);
-  const fe a = qshfl(r, 0);
-  const fe b = qshfl(r, 1);
-  const fe c = qshfl(r, 2);
-  const fe d = qshfl(r, 3);
-  fe o1, o2;
-  q_round2_operands(sub(b, a), sub(d, c), add(d, c), add(b, a), o1, o2);
+  const bool dc1 = q == 1 || q == 2;   // o1: e, g, f, e
+  const bool dc2 = q == 0 || q == 2;   // o2: f, h, g, h
+  const fe o1 = add_signed(qshfl(r, dc1 ? 3 : 1), qshfl(r, dc1 ? 2 : 0), q == 1 ? 1 : -1);
+  const fe o2 = add_signed(qshfl(r, dc2 ? 3 : 1), qshfl(r, dc2 ? 2 : 0), q == 0 ? -1 : 1);
   return mul(o1, o2);
 }
 

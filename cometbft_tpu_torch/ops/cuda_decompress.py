@@ -3,14 +3,21 @@
 Replaces the Pallas TPU kernel `cometbft_tpu/ops/pallas_decompress.py::
 decompress` (`_decompress_kernel`, pallas_call at :143).  On the TPU the
 kernel exists to keep the ~270-product square-root chain in VMEM instead
-of paying XLA's per-op dispatch; here one CUDA thread decodes one
-encoding with the whole chain in registers (ops/csrc/ed25519_kernels.cu
-`decompress_kernel`).
+of paying XLA's per-op dispatch; here the chain stays in registers
+(ops/csrc/ed25519_kernels.cu `decompress_kernel`).
 
 What bounds it on the H100: integer multiply-adds — about 265 field
-squarings/products of 210/400 IMADs per lane, against 32 bytes in and
-324 bytes out per lane.  The design does nothing clever beyond one lane
-per thread and coalesced limbs-first loads and stores.
+squarings/products of 210/400 multiply-adds per lane, against 32 bytes in
+and 324 bytes out per lane.  The chain is one lane's products in series,
+so one thread per lane leaves most of the card idle at the main path's
+widths (128 to 10,240 lanes).  The kernel decodes one encoding per thread
+quad and splits every field product of the chain across the quad
+(ops/csrc/fe25519_split.cuh): each thread multiplies its own five limbs
+of one factor by all of the other, the quad exchanges partial columns so
+that each thread holds ten whole columns, and each thread carries and
+folds them into its five limbs of the result.  Each column is the same
+exact integer sum, so the result equals the sequential product limb for
+limb and the kernel equals `decompress_plain`.
 """
 
 from __future__ import annotations

@@ -5,10 +5,12 @@ epilogue — with their plain torch versions, and the block and group
 helpers of the JAX package's `pallas_msm.py` that choose their shapes.
 
 K2 `table17_neg` replaces `cometbft_tpu/ops/pallas_msm.py::table17_neg`
-(`_table17_neg_kernel`, pallas_call at :417).  One thread per point
-writes the 17 rows k*(-P).  Bound on the H100: operations (15 cached
-adds of 8 products, 1 to_cached product); the 5,440-byte table per lane
-is written once.
+(`_table17_neg_kernel`, pallas_call at :417).  A thread quad per point
+writes the 17 rows k*(-P), one coordinate per thread: the 15 cached adds
+run in series, each as two rounds of four products, one per thread
+(`fe25519_quad.cuh`, limb for limb the sequential formulas).  Bound on
+the H100: operations (15 cached adds of 8 products, 1 to_cached
+product); the 5,440-byte table per lane is written once.
 
 K3 `msm_window_major` replaces `pallas_msm.py::msm_window_major`
 (`_window_major_kernel`, pallas_call at :498).  The TPU kernel sums each

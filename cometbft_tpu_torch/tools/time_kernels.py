@@ -1,0 +1,155 @@
+#!/usr/bin/env python3
+"""Time the port's kernels K1 (decompress), K2 (table17_neg) and K3
+(msm_window_major) of one checkout on the card, at the main path's
+widths, and optionally count the instruction mix of K1's and K2's
+longest loops.
+
+    python3 cometbft_tpu_torch/tools/time_kernels.py [--root DIR] [--sass]
+
+Run it as a file, not with -m.  --root is the checkout whose
+`cometbft_tpu_torch` is imported and built (default: the one holding
+this script), so that two commits can be
+compared in one call on one card: unpack the other with `git archive`
+into a gitignored directory and run parent, change, change, parent.
+
+The inputs come from a seeded generator on the card, so every checkout
+gets the same words: random 32-byte encodings (about half decode) at
+W = 128, 5120, 8192 and 10240 lanes, the widths K1 and K2 take on the
+main path; K2 takes K1's points.  K1 and K2 are launched through the
+library's C functions into preallocated outputs (the wrappers' Python
+work, some tens of microseconds a call, would otherwise be what is timed
+at the small widths); K3, at 52 windows on the A-side widths (128,
+10240) and 26 on the R-side ones (5120, 8192), with random digits,
+through its wrapper.  Each time is the median over 7 runs of the
+CUDA-event time of 20 calls made back to back, divided by 20.
+Before timing, each kernel is held against its plain version at
+W = 129.  --sass disassembles
+the built library with cuobjdump and prints, for each of the two
+kernels, the opcode counts of its longest loop (a backward branch and
+its target).  Prints one JSON line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+WIDTHS = (128, 5120, 8192, 10240)
+
+
+def _time(torch, fn, args, reps=7, inner=20):
+    fn(*args)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(inner):
+            fn(*args)
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / inner)
+    times.sort()
+    return times[len(times) // 2]
+
+
+def _loop_mix(sass: str, kernel: str) -> dict:
+    """Opcode counts of the longest loop of `kernel` (the SASS section of
+    the entry function whose mangled name starts with _Z<len><kernel>,
+    with the device functions it calls that follow it)."""
+    lines = sass.splitlines()
+    tag = f"Function : _Z{len(kernel)}{kernel}"
+    start = next(i for i, ln in enumerate(lines) if tag in ln)
+    end = next((i for i in range(start + 1, len(lines))
+                if "Function : " in lines[i]), len(lines))
+    ins = []
+    for ln in lines[start:end]:
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                     r"([A-Z0-9_.]+)(.*);", ln)
+        if m:
+            ins.append((int(m.group(1), 16), m.group(2), m.group(3)))
+    at = {a: k for k, (a, _, _) in enumerate(ins)}
+    best = None
+    for k, (a, op, rest) in enumerate(ins):
+        t = re.search(r"0x([0-9a-f]+)", rest)
+        if op.startswith("BRA") and t and int(t.group(1), 16) < a:
+            b = at.get(int(t.group(1), 16))
+            if b is not None and (best is None or k - b > best[1] - best[0]):
+                best = (b, k)
+    if best is None:
+        return {}
+    mix = collections.Counter(op.split(".")[0]
+                              for _, op, _ in ins[best[0]:best[1] + 1])
+    return {"instructions": best[1] - best[0] + 1, **dict(mix.most_common())}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
+    ap.add_argument("--sass", action="store_true")
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("time_kernels: no CUDA device", file=sys.stderr)
+        return 2
+    root = Path(args.root).resolve()
+    sys.path.insert(0, str(root))
+    from cometbft_tpu_torch.ops import _build
+    from cometbft_tpu_torch.ops import cuda_decompress as cd
+    from cometbft_tpu_torch.ops import cuda_msm as cm
+    from cometbft_tpu_torch.ops import device as devmod
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+    gen = torch.Generator(device="cuda").manual_seed(20261017)
+
+    def words(w):
+        return torch.randint(-2**31, 2**31 - 1, (8, w), dtype=torch.int32,
+                             device="cuda", generator=gen)
+
+    w129 = words(129)
+    pk, okk = cd.decompress(w129)
+    pp, okp = cd.decompress_plain(w129)
+    k1_err = int((pk - pp).abs().max()) + int((okk != okp).sum())
+    k2_err = int((cm.table17_neg(pp) - cm.table17_neg_plain(pp)).abs().max())
+    rec = {"card": card, "root": str(root), "k1_err_w129": k1_err,
+           "k2_err_w129": k2_err, "k1_ms": {}, "k2_ms": {}, "k3_ms": {}}
+    lib = _build.load("ed25519_kernels")
+    stream = devmod.stream(w129)
+    for w in WIDTHS:
+        wd = words(w)
+        pt = torch.empty((4, 20, w), dtype=torch.int32, device="cuda")
+        ok = torch.empty((w,), dtype=torch.int32, device="cuda")
+        tab = torch.empty((17, 4, 20, w), dtype=torch.int32, device="cuda")
+        k1 = (devmod.ptr(wd), w, devmod.ptr(pt), devmod.ptr(ok), stream)
+        k2 = (devmod.ptr(pt), w, devmod.ptr(tab), stream)
+        rec["k1_ms"][w] = _time(torch, lib.ed25519_decompress, k1)
+        rec["k2_ms"][w] = _time(torch, lib.ed25519_table17_neg, k2)
+        nwin = 52 if w in (128, 10240) else 26
+        mags = torch.randint(0, 17, (nwin, w), dtype=torch.int32,
+                             device="cuda", generator=gen)
+        negs = torch.randint(0, 2, (nwin, w), device="cuda",
+                             generator=gen) != 0
+        rec["k3_ms"][f"{nwin}x{w}"] = _time(
+            torch, lambda: cm.msm_window_major(tab, mags, negs, group=1), ())
+    if args.sass:
+        so = _build._target("ed25519_kernels")
+        tool = Path(_build.nvcc()).parent / "cuobjdump"
+        sass = subprocess.run([str(tool), "-sass", str(so)],
+                              capture_output=True, text=True).stdout
+        rec["loop_mix"] = {k: _loop_mix(sass, k) for k in
+                           ("decompress_kernel", "table17_neg_kernel")}
+    print(json.dumps(rec), flush=True)
+    return 0 if k1_err == 0 and k2_err == 0 else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
