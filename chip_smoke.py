@@ -23,7 +23,21 @@ result):
              with an s >= L signature, non-canonical-y keys and a tampered
              signature, every verdict held against the pure-Python
              ed25519_ref.verify;
-  5. engines the same entry points under each MSM engine configuration
+  5. mesh    the multi-device path on device lists [cuda:(i % cards)
+             for i in range(n)] (n logical shards on one card): K8
+             (ops/msm_shard.rlc_verify_sharded) on the window's and the
+             batch's packed inputs at n = 1, 2, 4, clean and tampered,
+             each call launching exactly 2n K1, 2n K2, 2n K3 and one
+             K4, its verdict equal to the unsharded program's; the
+             4,848-signature window split over 2 and 4 devices
+             (crypto/mesh.split_rlc_verify: only the bad height's chunk
+             rejects), then localized by the per-signature program split
+             over them (verify_batch_mesh), and the hostile 8,192 batch
+             the same way against the unsharded verify_kernel; a placed
+             cached-A call made twice, the second hitting its device's
+             entry; K8's gathered partials on the window's R side at
+             n = 4 against the same function over four "cpu" shards;
+  6. engines the same entry points under each MSM engine configuration
              (the JAX package's flags, set on the port's modules):
              window_loop (K6), grouped_g4 and grouped_g13 (K5),
              select_tree (K7 in the window scan, no fold kernel) and
@@ -31,20 +45,22 @@ result):
              tampered signature), the window (accept and the bad height),
              and for window_loop and grouped_g4 the clean 8,192 batch;
              each must launch exactly its configuration's kernels;
-  6. kernels each kernel vs its plain version on the card, at the shapes
+  7. kernels each kernel vs its plain version on the card, at the shapes
              phases 2-4 gave it (exact integer equality; K1 at the four
              main-path widths and on hostile encodings, K1 and K2 also at
              the ragged widths 1, 7 and 129; K3 also at the commit's two
              sides and on a 32-lane slice, where its Horner chain is all
              the work), K5 also vs K3 (projectively), and K3, K5, K6, K7
              on digits with magnitudes outside 0..16;
-  7. timing  each kernel's median time over runs of 10 launches back to
+  8. timing  each kernel's median time over runs of 10 launches back to
              back and each plain version's median time per call (CUDA
              events), with the bound the card could reach for the same
              work.
 The launch counters are reset before phase 2 and read after phase 4
 (the default engine: every one of K1-K4 must launch there, none of
-K5-K7), and reset before and read after each configuration of phase 5.
+K5-K8), reset before and read after phase 5's path (its comparisons
+with the plain version excluded), and reset before and read after each
+configuration of phase 6.
 Keys and messages come from a fixed seed; the RLC weights are drawn from
 `secrets`, as they are in use.
 """
@@ -90,9 +106,13 @@ KERNELS = {
 }
 DEFAULT_KERNELS = {"ed25519_decompress", "ed25519_table17_neg",
                    "ed25519_msm_window_major", "ed25519_fold_verify"}
+# K8 runs K1-K4 per shard; its two entry points count their own calls
+K8 = ("ed25519_sharded_msm", "ed25519_rlc_verify_sharded")
+MESH_SHARDS = (1, 2, 4)
+NVLINK_BYTES_PER_S = 450e9     # one direction, H100 SXM data sheet
 
 # the engine flags (ops/ed25519 USE_PALLAS_*, ops/cuda_msm WIN_GROUP) at
-# the JAX package's defaults, and each configuration of phase 5: its
+# the JAX package's defaults, and each configuration of phase 6: its
 # flags, the kernels it must launch (and no other), whether it also runs
 # the 8,192 batch
 DEFAULT_ENGINE = {"USE_PALLAS_MSM_MAJOR": True, "USE_PALLAS_MSM_LOOP": True,
@@ -198,7 +218,8 @@ def main() -> int:
     torch.cuda.set_device(0)
     state = {}
     phases = [phase_build, phase_fixtures, phase_commit, phase_window,
-              phase_batch, phase_engines, phase_kernels, phase_timing]
+              phase_batch, phase_mesh, phase_engines, phase_kernels,
+              phase_timing]
     ctx = mp.get_context("spawn")
     with ctx.Pool(os.cpu_count() or 1) as pool:
         state["pool"] = pool
@@ -341,8 +362,10 @@ def phase_fixtures(state, torch):
 # -- main path: launch accounting ---------------------------------------------
 
 def _kernels():
-    from cometbft_tpu_torch.ops import cuda_decompress, cuda_msm
-    return {"ed25519_decompress": cuda_decompress.decompress,
+    from cometbft_tpu_torch.ops import cuda_decompress, cuda_msm, msm_shard
+    return {"ed25519_sharded_msm": msm_shard.sharded_msm,
+            "ed25519_rlc_verify_sharded": msm_shard.rlc_verify_sharded,
+            "ed25519_decompress": cuda_decompress.decompress,
             "ed25519_table17_neg": cuda_msm.table17_neg,
             "ed25519_msm_window_major": cuda_msm.msm_window_major,
             "ed25519_fold_verify": cuda_msm.fold_verify,
@@ -517,6 +540,7 @@ def phase_window(state, torch):
 
     with _Timed(dev, "verify_kernel", torch) as persig:
         reject_s, bad, bad_h = _window_reject(state, val, commits)
+    state["window_bad"] = (bad, bad_h)
     state["window_packed_bad"] = ed.pack_rlc(*_window_items(state, bad))
     state["window_packed"] = ed.pack_rlc(*_window_items(state, commits))
     state["commit_packed"] = ed.pack_rlc(*_window_items(
@@ -611,7 +635,285 @@ def phase_batch(state, torch):
             "main_path_launches": state["main_launches"]}
 
 
-# -- phase 5: the engine configurations -------------------------------------------
+# -- phase 5: the multi-device path ---------------------------------------------
+
+def _mesh_devices(torch, n):
+    """n logical shards: cuda:(i % cards), or "cpu" n times when the
+    script runs the plain versions."""
+    if DEVICE == "cpu":
+        return [torch.device("cpu")] * n
+    cards = torch.cuda.device_count()
+    return [torch.device("cuda", i % cards) for i in range(n)]
+
+
+def _launched(before, after):
+    """The counts that moved between two readings."""
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+def _k8_bound(state, torch, devices, sides, tables):
+    """Least time of one K8 call: per card, the bounds of the kernels
+    its shards run in turn (K1 and K2 when `tables`, then K3, on each
+    side of `sides` = [(width, windows)]), the cards in parallel; then
+    the gathered partials' bytes once at the copy rate (HBM on one
+    card, NVLink across cards) and the epilogue on devices[0]: K4 over
+    both sides' partials, or the tree fold of one side's.  Returns
+    (ms, "operations" or "bytes")."""
+    from cometbft_tpu_torch.ops import cuda_msm as cm
+
+    def meta(*shape):
+        return torch.empty(shape, device="meta")
+
+    def bound(name, *args):
+        return _bound(state, *_work(name, {"args": args}))[0]
+
+    n = len(devices)
+    per_card, parts = {}, []
+    for w, nwin in sides:
+        ws = w // n
+        t = bound("ed25519_msm_window_major", None, meta(nwin, ws), None)
+        if tables:
+            t += (bound("ed25519_decompress", meta(8, ws))
+                  + bound("ed25519_table17_neg", meta(4, 20, ws)))
+        for d in devices:
+            per_card[d] = per_card.get(d, 0.0) + t
+        parts.append(n * cm.msm_geometry(ws, nwin)[2])
+    rate = NVLINK_BYTES_PER_S if len(set(devices)) > 1 else HBM_BYTES_PER_S
+    t_gather = sum(parts) * 320 / rate * 1e3
+    if tables:
+        t_tail = bound("ed25519_fold_verify", meta(4, 20, parts[0]),
+                       meta(4, 20, parts[1]))
+    else:
+        t_tail = _bound(state, (parts[0] - 1) * ADD, 0)[0]
+    t_ops = max(per_card.values()) + t_tail
+    return t_ops + t_gather, "operations" if t_ops >= t_gather else "bytes"
+
+
+def _k8_calls(state, torch, packs):
+    """rlc_verify_sharded on each packed input at each shard count, three
+    calls each: every verdict equals the unsharded whole program's, and
+    every call launches 2n K1, 2n K2, 2n K3, one K4 and nothing else."""
+    import statistics
+
+    from cometbft_tpu_torch import convert
+    from cometbft_tpu_torch.crypto import ed25519 as ed
+    from cometbft_tpu_torch.ops import msm_shard
+
+    rows = []
+    for label, (clean, tampered) in packs.items():
+        for tag, packed in (("clean", clean), ("tampered", tampered)):
+            unsharded = ed.rlc_verify(packed, use_cache=False, device=DEVICE)
+            check(unsharded is (tag == "clean"),
+                  f"unsharded {label} {tag}: {unsharded}")
+            args = convert.packed_from_numpy(packed, DEVICE)
+            k, w = (int(a.shape[-1]) for a in args[:2])
+            for n in MESH_SHARDS:
+                devs = _mesh_devices(torch, n)
+                want = {"ed25519_decompress": 2 * n,
+                        "ed25519_table17_neg": 2 * n,
+                        "ed25519_msm_window_major": 2 * n,
+                        "ed25519_fold_verify": 1,
+                        "ed25519_rlc_verify_sharded": 1}
+                times = []
+                for _ in range(3):
+                    before = _counts()
+                    t0 = time.perf_counter()
+                    got = bool(msm_shard.rlc_verify_sharded(*args,
+                                                            devices=devs))
+                    times.append((time.perf_counter() - t0) * 1e3)
+                    launched = _launched(before, _counts())
+                    check(got is unsharded, f"K8 {label} {tag} n={n}: "
+                          f"{got}, unsharded {unsharded}")
+                    check(launched == want, f"K8 {label} {tag} n={n} "
+                          f"launched {launched}, not {want}")
+                bound_ms, bound_by = _k8_bound(
+                    state, torch, devs, [(k, 52), (w, 26)], tables=True)
+                rows.append({"packed": label, "signatures": tag,
+                             "shards": n, "shape": [k, w], "verdict": got,
+                             "ms": statistics.median(times),
+                             "bound_ms": bound_ms, "bound_by": bound_by})
+    return rows
+
+
+def _split_window(state, torch):
+    """The 4,848-signature window split over 2 and 4 devices, clean (3
+    calls each) and with the bad signature (only its chunk rejects),
+    each call's launches exact given its A-table cache hits; then the
+    bad window localized over the same devices."""
+    import statistics
+
+    from cometbft_tpu_torch.crypto import ed25519 as ed
+    from cometbft_tpu_torch.crypto import mesh
+
+    clean = _window_items(state, [(h, state["commits"][h])
+                                  for h in state["heights"]])
+    bad = _window_items(state, state["window_bad"][0])
+    bad_i = next(i for i, (a, b) in enumerate(zip(clean[2], bad[2]))
+                 if a != b)
+    rows = []
+    for tag, items in (("clean", clean), ("bad", bad)):
+        parsed = ed.parse_and_hash(*items)
+        for n in MESH_SHARDS[1:]:
+            devs = _mesh_devices(torch, n)
+            spans = mesh.split_spans(len(items[0]), n)
+            want = [tag == "clean" or not a <= bad_i < b for a, b in spans]
+            times = []
+            for _ in range(3 if tag == "clean" else 1):
+                before, hits = _counts(), ed._A_TABLE_CACHE.hits
+                t0 = time.perf_counter()
+                got = mesh.split_rlc_verify(items[0], parsed, devs)
+                times.append((time.perf_counter() - t0) * 1e3)
+                hit = ed._A_TABLE_CACHE.hits - hits
+                launched = _launched(before, _counts())
+                check(got == want, f"split {tag} n={n}: {got}, not {want}")
+                need = {"ed25519_decompress": 2 * n - hit,
+                        "ed25519_table17_neg": 2 * n - hit,
+                        "ed25519_msm_window_major": 2 * n,
+                        "ed25519_fold_verify": n}
+                check(launched == need, f"split {tag} n={n} launched "
+                      f"{launched}, not {need}")
+            rec = {"signatures": tag, "shards": n, "chunks": got,
+                   "ms": statistics.median(times), "cache_hits": hit}
+            if tag == "bad":
+                before = _counts()
+                t0 = time.perf_counter()
+                verdicts = mesh.verify_batch_mesh(items[0], parsed, devs)
+                rec["localize_ms"] = (time.perf_counter() - t0) * 1e3
+                launched = _launched(before, _counts())
+                check([i for i, v in enumerate(verdicts) if not v] == [bad_i],
+                      f"localized over {n}: not exactly index {bad_i}")
+                check(launched == {"ed25519_decompress": n},
+                      f"localization over {n} launched {launched}")
+            rows.append(rec)
+    return rows, bad_i
+
+
+def _hostile_split(state, torch):
+    """The hostile 8,192 batch's per-signature program split over 2 and
+    4 devices: verdicts equal the unsharded program's."""
+    from cometbft_tpu_torch import convert
+    from cometbft_tpu_torch.crypto import ed25519 as ed
+    from cometbft_tpu_torch.crypto import mesh
+    from cometbft_tpu_torch.ops import ed25519 as dev
+
+    pubs = state["batch_items"][0]
+    parsed = ed.parse_and_hash(*state["batch_items"])
+    n = len(pubs)
+    a, r, s, h, valid = ed.pack_batch(pubs, [b""] * n, [b""] * n,
+                                      dev.bucket_size(n), parsed=parsed)
+    want = (dev.verify_kernel(*convert.batch_from_numpy(a, r, s, h, DEVICE))
+            .cpu().numpy() & valid)[:n].tolist()
+    rows = []
+    for shards in MESH_SHARDS[1:]:
+        t0 = time.perf_counter()
+        got = mesh.verify_batch_mesh(pubs, parsed,
+                                     _mesh_devices(torch, shards))
+        check(got == want, f"hostile batch over {shards} differs from the "
+              "unsharded per-signature program")
+        rows.append({"shards": shards, "ms": (time.perf_counter() - t0) * 1e3,
+                     "rejected": [i for i, v in enumerate(got) if not v]})
+    return rows
+
+
+def _k8_vs_plain(state, torch):
+    """K8 on the window's R side at n = 4: the gathered partials on the
+    card equal the same function's over four "cpu" shards (the plain
+    versions) limb for limb, and the reduced point equals the
+    single-program K3 + _tree_reduce point projectively."""
+    import functools
+
+    from cometbft_tpu_torch import convert
+    from cometbft_tpu_torch.ops import cuda_decompress as cd
+    from cometbft_tpu_torch.ops import cuda_msm as cm
+    from cometbft_tpu_torch.ops import ed25519 as dev
+    from cometbft_tpu_torch.ops import fe, msm_shard
+
+    t = convert.packed_from_numpy(state["window_packed"], DEVICE)
+    mags, negs = t[4], t[5]
+    tab = cm.table17_neg(cd.decompress(t[1])[0])
+    devs = _mesh_devices(torch, MESH_SHARDS[-1])
+    parts = msm_shard.sharded_partials(tab, mags, negs, devices=devs)
+    host = [x.cpu() for x in (tab, mags, negs)]
+    t0 = time.perf_counter()
+    plain_parts = msm_shard.sharded_partials(
+        *host, devices=[torch.device("cpu")] * len(devs))
+    plain_point = dev._tree_reduce(plain_parts, 1)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = _exact(parts.cpu(), plain_parts)
+    point = msm_shard.sharded_msm(tab, mags, negs, devices=devs)
+    single = dev._tree_reduce(cm.msm_window_major(tab, mags, negs, group=1), 1)
+    proj = max(_proj_err(torch, fe, point, single),
+               _proj_err(torch, fe, point.cpu(), plain_point))
+    check(err == 0 and proj == 0, f"K8 partials differ from plain by {err}, "
+          f"its point from the single program's by {proj}")
+    nwin, w = (int(d) for d in mags.shape)
+    ms = (_time(torch, functools.partial(msm_shard.sharded_msm, devices=devs),
+                (tab, mags, negs), 7, inner=3) if DEVICE == "cuda" else None)
+    bound_ms, bound_by = _k8_bound(state, torch, devs, [(w, nwin)],
+                                   tables=False)
+    return {"shape": [nwin, w], "shards": len(devs),
+            "partials": int(parts.shape[-1]), "max_abs_err": err,
+            "projective_err": proj, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def phase_mesh(state, torch):
+    """The multi-device path on logical shards, with the counts set to 0
+    just before it and read just after: K8 whole programs, the split
+    window and its localization, the hostile batch split, the placed
+    cached-A program.  Then K8 against its plain version (comparison
+    launches do not count)."""
+    from cometbft_tpu_torch.crypto import ed25519 as ed
+
+    pubs, msgs, sigs = (list(x) for x in state["batch"])
+    i3 = N_BATCH // 8 * 3                 # phase 4's tampered signature
+    t = bytearray(sigs[i3])
+    t[50] ^= 0x08
+    sigs[i3] = bytes(t)
+    packs = {"window": (state["window_packed"], state["window_packed_bad"]),
+             "batch": (state["batch_packed"], ed.pack_rlc(pubs, msgs, sigs))}
+    ed._A_TABLE_CACHE = cache = ed.ATableCache()
+    _zero_counts()                        # the mesh path starts here
+    t0 = time.perf_counter()
+    k8 = _k8_calls(state, torch, packs)
+    split, bad_i = _split_window(state, torch)
+    hostile = _hostile_split(state, torch)
+    last = _mesh_devices(torch, MESH_SHARDS[-1])[-1]
+    ed._A_TABLE_CACHE = cache = ed.ATableCache()
+    hits = []
+    for _ in range(2):
+        h0 = cache.hits
+        check(ed.rlc_verify(state["window_packed"], use_cache=True,
+                            device=last), f"placed cached-A on {last} rejected")
+        hits.append(cache.hits - h0)
+    key = (state["window_packed"][0].tobytes(), str(last))
+    check(hits == [0, 1] and key in cache._entries,
+          f"placed cached-A on {last}: hits {hits}")
+    path_s = time.perf_counter() - t0
+    state["mesh_launches"] = _counts()
+    vs_plain = _k8_vs_plain(state, torch)
+    for name, fn in _kernels().items():  # comparison launches do not count
+        fn.launches = state["mesh_launches"][name]
+    launches = {k: state["mesh_launches"][k] for k in K8}
+    state["k8_row"] = {
+        "name": "ed25519_sharded_msm", "route": "cuda",
+        "source": "cometbft_tpu_torch/ops/msm_shard.py",
+        "replaces": "cometbft_tpu/ops/msm_shard.py:42",
+        "launches": sum(launches.values()), "launches_by_function": launches,
+        "max_abs_err": vs_plain["max_abs_err"], "ms": vs_plain["ms"],
+        "plain_ms": vs_plain["plain_ms"], "bound_ms": vs_plain["bound_ms"],
+        "bound_by": vs_plain["bound_by"], "library_ms": None,
+        "matches_plain": True, "shape": vs_plain["shape"],
+        "shards": vs_plain["shards"], "rlc_verify_sharded": k8}
+    return {"card": state["card"], "devices": [str(d) for d in
+                                               _mesh_devices(torch, 4)],
+            "path_seconds": path_s, "k8": k8, "split_window": split,
+            "bad_index": bad_i, "hostile_batch": hostile,
+            "placed_cached_a": {"device": str(last), "hits": hits},
+            "k8_vs_plain": vs_plain, "launches": state["mesh_launches"]}
+
+
+# -- phase 6: the engine configurations -------------------------------------------
 
 def phase_engines(state, torch):
     """Each configuration drives the commit, the window and (where
@@ -660,7 +962,7 @@ def phase_engines(state, torch):
     return {"configurations": rows}
 
 
-# -- phase 6: kernel vs plain --------------------------------------------------
+# -- phase 7: kernel vs plain --------------------------------------------------
 
 def _hostile_words(state, torch):
     """K1 input at W = 8192: the phase-4 public keys (two of them
@@ -855,7 +1157,7 @@ def phase_kernels(state, torch):
                              for c in v] for k, v in cases.items()}}
 
 
-# -- phase 7: timing -------------------------------------------------------------
+# -- phase 8: timing -------------------------------------------------------------
 
 def _time(torch, fn, args, reps, inner=1):
     """Median over reps of the CUDA-event time of `inner` calls made back
@@ -916,6 +1218,18 @@ def _work(name, case):
     return (n - 1) * ADD + 3 * DBL, n * 320 + 4
 
 
+def _peak(state):
+    """int32 multiply-adds per second of the whole card."""
+    return 132 * INT32_LANES_PER_SM_CLK * state["sm_clock_hz"]
+
+
+def _bound(state, ops, nbytes, bytes_per_s=HBM_BYTES_PER_S):
+    """(bound ms, "operations" or "bytes"): the larger of the two times."""
+    t_ops, t_bytes = ops / _peak(state) * 1e3, nbytes / bytes_per_s * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
 def phase_timing(state, torch):
     from cometbft_tpu_torch.ops import cuda_decompress as cd
     from cometbft_tpu_torch.ops import cuda_msm as cm
@@ -929,30 +1243,31 @@ def phase_timing(state, torch):
              "ed25519_msm_window_loop": cm.msm_window_loop_plain,
              "ed25519_select_tree": cm.select_tree_plain}
     saved = _counts()
-    peak_ops = 132 * INT32_LANES_PER_SM_CLK * state["sm_clock_hz"]
     rows = []
-    for name, fn in _kernels().items():
+    for name in KERNELS:
+        fn = _kernels()[name]
         shapes = []
         for case in state["cases"][name]:
             ms = _time(torch, fn, case["args"], 7, inner=10)
             plain_ms = _time(torch, plain[name], case["args"], 3)
             ops, nbytes = _work(name, case)
-            t_ops, t_bytes = ops / peak_ops * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+            bound_ms, bound_by = _bound(state, ops, nbytes)
             shapes.append({"shape": case["shape"],
                            "phase": case.get("phase", "batch"), "ms": ms,
-                           "plain_ms": plain_ms,
-                           "bound_ms": max(t_ops, t_bytes),
-                           "bound_by": "operations" if t_ops >= t_bytes
-                           else "bytes", "int32_madds": ops, "bytes": nbytes,
+                           "plain_ms": plain_ms, "bound_ms": bound_ms,
+                           "bound_by": bound_by, "int32_madds": ops,
+                           "bytes": nbytes,
                            "max_abs_err": case["max_abs_err"],
                            **{k: case[k] for k in ("group", "blk", "row")
                               if k in case}})
         top = max(shapes, key=lambda s: s["ms"])
         by_path = {"main": state["main_launches"][name],
+                   "mesh": state["mesh_launches"][name],
                    **{cfg: c[name]
                       for cfg, c in state["engine_launches"].items()}}
         launches = (by_path["main"] if name in DEFAULT_KERNELS else
-                    sum(v for k, v in by_path.items() if k != "main"))
+                    sum(v for k, v in by_path.items()
+                        if k not in ("main", "mesh")))
         source, replaces = KERNELS[name]
         rows.append({"name": name, "route": "cuda", "source": CSRC + source,
                      "replaces": replaces, "launches": launches,
@@ -964,8 +1279,8 @@ def phase_timing(state, torch):
                      "shape": top["shape"], "shapes": shapes})
     for name, fn in _kernels().items():   # timing launches do not count
         fn.launches = saved[name]
-    state["kernel_rows"] = rows
-    return {"card": state["card"], "peak_int32_madds_per_s": peak_ops,
+    state["kernel_rows"] = rows + [state["k8_row"]]
+    return {"card": state["card"], "peak_int32_madds_per_s": _peak(state),
             "main_path_seconds": state["main_s"]}
 
 

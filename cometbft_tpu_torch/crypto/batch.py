@@ -16,6 +16,7 @@ raises unless the caller asks for device="cpu".
 
 from __future__ import annotations
 
+import os
 from typing import Protocol
 
 from . import ed25519 as ed
@@ -68,30 +69,49 @@ class CudaEd25519BatchVerifier(_SigCollector):
         return _device_verify(pks, parsed, self.device)
 
 
+def _placed(device) -> bool:
+    """A dispatch is placed when it names one device: "cuda:N" or
+    "cpu".  The un-indexed "cuda" is the JAX package's device=None: the
+    current card, or a split over the mesh when one is configured."""
+    return device.type != "cuda" or device.index is not None
+
+
 def _device_verify(pubkeys: list[bytes], parsed,
                    device) -> tuple[bool, list[bool]]:
     """RLC fast path first (one verdict for the batch), the
-    per-signature program for verdict localization on failure."""
-    from .. import convert
-    from ..ops import ed25519 as dev
+    per-signature program for verdict localization on failure.
+
+    A placed dispatch runs both on `device`.  An un-placed one splits a
+    large batch over the mesh first (crypto/mesh.maybe_split_verify:
+    one RLC program per device) and localizes with the per-signature
+    program split over the mesh, or with the mesh off over every local
+    card, as the JAX package does (ops/sharding.verify_batch_sharded)."""
+    from ..ops import sharding
+    from . import mesh
 
     n = len(pubkeys)
+    placed = _placed(device)
     if n >= 2:
-        packed = ed.pack_rlc(pubkeys, [b""] * n, [b""] * n, parsed=parsed)
-        if packed is not None and ed.rlc_verify(packed, device=device):
+        rlc_ok = None if placed else mesh.maybe_split_verify(pubkeys, parsed)
+        if rlc_ok is None:
+            packed = ed.pack_rlc(pubkeys, [b""] * n, [b""] * n,
+                                 parsed=parsed)
+            rlc_ok = packed is not None and ed.rlc_verify(packed,
+                                                          device=device)
+        if rlc_ok:
             return True, [True] * n
-    bucket = dev.bucket_size(n)
+    devices = [device] if placed else mesh.mesh_devices()
+    bucket = sharding.auto_bucket(n, None if devices is None else len(devices))
     a, r, s, h, valid = ed.pack_batch(pubkeys, [b""] * n, [b""] * n,
                                       bucket, parsed=parsed)
-    verdict = dev.verify_kernel(*convert.batch_from_numpy(a, r, s, h,
-                                                          device))
+    verdict = sharding.verify_batch_sharded(a, r, s, h, devices=devices)
     out = (verdict.cpu().numpy() & valid)[:n].tolist()
     return all(out) and bool(out), out
 
 
 # below this many signatures the host loop wins (CometBFT's analog is
 # batchVerifyThreshold = 2; the device round-trip has a fixed cost)
-DEVICE_THRESHOLD = 8
+DEVICE_THRESHOLD = int(os.environ.get("COMETBFT_TPU_BATCH_THRESHOLD", "8"))
 
 
 def safe_verify(pub_key, msg: bytes, sig: bytes) -> bool:

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import collections
 import hashlib
+import os
 import secrets
 import threading
 from dataclasses import dataclass
@@ -300,16 +301,20 @@ class ATableCache:
     A validator set's distinct pubkeys produce the same packed a_words
     every commit, so the decompression + 17-row table build (K1 + K2 on
     the A side) can stay on the card across dispatches.  Keyed by
-    (a_words bytes, device); LRU-bounded by a byte budget and an entry
-    cap.  Thread-safe."""
+    (a_words bytes, device): each device of a split keeps its own copy.
+    LRU-bounded by a byte budget (COMETBFT_TPU_A_CACHE_BYTES, default
+    128 MiB) and an entry cap.  Thread-safe."""
 
     # Below this many A slots the saved work is smaller than the cost of
     # keeping a table: small-K batches stay on the whole program.
-    MIN_K = 64
+    MIN_K = int(os.environ.get("COMETBFT_TPU_A_CACHE_MIN_K", "64"))
 
-    def __init__(self, capacity: int = 8, max_bytes: int = 128 << 20):
+    def __init__(self, capacity: int = 128, max_bytes: int | None = None):
         self._cap = capacity
-        self._max_bytes = max_bytes
+        self._max_bytes = (max_bytes if max_bytes is not None else
+                           int(os.environ.get(
+                               "COMETBFT_TPU_A_CACHE_BYTES",
+                               str(128 << 20))))
         self._entries = collections.OrderedDict()   # key -> (entry, nbytes)
         self._bytes = 0
         self._seen: collections.OrderedDict = collections.OrderedDict()
@@ -323,7 +328,8 @@ class ATableCache:
         return self._bytes
 
     def get(self, a_words: np.ndarray, device):
-        """(8, K) packed encodings -> (device table, device ok-flag)."""
+        """(8, K) packed encodings -> (device table, device ok-flag),
+        built on and keyed to `device`."""
         from .. import convert
         from ..ops import ed25519 as dev
 
@@ -369,22 +375,40 @@ class ATableCache:
         return self.get(a_words, device)
 
 
-_A_TABLE_CACHE = ATableCache()
+_A_TABLE_CACHE = ATableCache(
+    capacity=int(os.environ.get("COMETBFT_TPU_A_CACHE_CAP", "8")))
+
+USE_A_CACHE = os.environ.get("COMETBFT_TPU_A_CACHE", "1") == "1"
 
 
-def rlc_verify(packed, device="cuda") -> bool:
-    """Run a pack_rlc batch on `device`: through the validator set's
-    cached A-table from its second sighting on (ATableCache policy),
-    else the whole program.  Returns the verdict."""
+def rlc_verify_async(packed, use_cache: bool | None = None, device="cuda"):
+    """Launch a pack_rlc batch's RLC program on `device` and return its
+    0-dim bool verdict tensor there, without waiting for it, so that a
+    caller splitting a window over several devices
+    (crypto/mesh.split_rlc_verify) launches every program before it
+    reads any verdict.
+
+    use_cache: True runs the cached-A program on the set's table for
+    `device` (built on a miss); False runs the whole program; None is
+    the ATableCache policy (cached-A from a set's second sighting on),
+    which COMETBFT_TPU_A_CACHE=0 turns off."""
     from .. import convert
     from ..ops import device as devmod
     from ..ops import ed25519 as dev
 
     device = devmod.resolve(device)
-    entry = _A_TABLE_CACHE.get_if_worthwhile(packed[0], device)
+    a_words = np.asarray(packed[0])
+    entry = None
+    if use_cache is True:
+        entry = _A_TABLE_CACHE.get(a_words, device)
+    elif use_cache is None and USE_A_CACHE:
+        entry = _A_TABLE_CACHE.get_if_worthwhile(a_words, device)
     t = convert.packed_from_numpy(packed, device)
     if entry is not None:
-        verdict = dev.rlc_verify_kernel_cached_a(entry[0], entry[1], *t[1:])
-    else:
-        verdict = dev.rlc_verify_kernel(*t)
-    return bool(verdict)
+        return dev.rlc_verify_kernel_cached_a(entry[0], entry[1], *t[1:])
+    return dev.rlc_verify_kernel(*t)
+
+
+def rlc_verify(packed, use_cache: bool | None = None, device="cuda") -> bool:
+    """rlc_verify_async, then the verdict read back."""
+    return bool(rlc_verify_async(packed, use_cache=use_cache, device=device))

@@ -11,6 +11,7 @@ without a card it raises unless the caller passes device="cpu".
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 from ..crypto import batch as crypto_batch
@@ -64,8 +65,11 @@ class DeferredSigBatch:
     shape.  pack_rlc's per-pubkey aggregation makes the repeated
     validator set nearly free."""
 
-    # below this many signatures the host loop wins over a device batch
-    DEVICE_THRESHOLD = max(crypto_batch.DEVICE_THRESHOLD, 128)
+    # below this many signatures the host loop wins over a device batch;
+    # never below the single-commit threshold
+    DEVICE_THRESHOLD = max(
+        crypto_batch.DEVICE_THRESHOLD,
+        int(os.environ.get("COMETBFT_TPU_DEFERRED_THRESHOLD", "128")))
 
     def __init__(self):
         # (label, context, pubkey, sign_bytes, sig); context is an
