@@ -51,7 +51,10 @@ result):
              the ragged widths 1, 7 and 129; K3 also at the commit's two
              sides and on a 32-lane slice, where its Horner chain is all
              the work), K5 also vs K3 (projectively), and K3, K5, K6, K7
-             on digits with magnitudes outside 0..16;
+             on digits with magnitudes outside 0..16; K4's verdict also
+             on partial sets made on the card from the seed: sums of
+             identity at 2 to 4,608 partials, each also with one limb
+             changed, and two with an 8-torsion component;
   8. timing  each kernel's median time over runs of 10 launches back to
              back and each plain version's median time per call (CUDA
              events), with the bound the card could reach for the same
@@ -1007,6 +1010,57 @@ def _exact(a, b):
     return int((a - b).abs().max())
 
 
+# K4's partial sets beyond the main path's, (na, nr): 1 + 1, the window's
+# and the batch's partial counts, 129, K5's partials of the batch
+# (320 + 256) and K6's (2560 + 2048); the torsion case at two of them
+FOLD_SETS = ((1, 1), (4, 10), (10, 8), (65, 64), (320, 256), (2560, 2048))
+FOLD_TORSION = ((10, 8), (320, 256))
+TORSION8 = "26e8958fc2b227b045c3f489f2ef98f0d5dfac05d3c63339b13802886d53fc05"
+
+
+def _fold_sets(state, torch):
+    """K4 inputs made on the card from the seed, for each (na, nr) of
+    FOLD_SETS: n - 1 = na + nr - 1 points Q_a + Q_b over a pool of 16
+    seeded multiples of B, then minus their sum, so the set sums to the
+    identity (expect True); the same set with one limb of one partial
+    raised by one (expect False); at FOLD_TORSION also the set with an
+    8-torsion point added to its first partial: it sums to that point,
+    which the cofactor 8 clears (expect True).  [(label, want, pa, pr)]"""
+    import numpy as np
+
+    from cometbft_tpu_torch.ops import ed25519 as dev
+    from cometbft_tpu_torch.ops import fe
+
+    ref = state["ref"]
+    rng = np.random.default_rng(SEED)
+
+    def limbs(pts):
+        arr = np.stack([np.stack([fe.int_to_limbs(p[c]) for p in pts], 1)
+                        for c in range(4)])
+        return torch.from_numpy(arr.astype(np.int32)).to(DEVICE)
+
+    pool = limbs([ref.point_mul(int(k), ref.B)
+                  for k in rng.integers(1, 1 << 62, 16)])
+    t8 = limbs([ref.point_decompress(bytes.fromhex(TORSION8))])
+    out = []
+    for na, nr in FOLD_SETS:
+        n = na + nr
+        a, b = (torch.from_numpy(rng.integers(0, 16, n - 1)).to(DEVICE)
+                for _ in range(2))
+        pts = dev.point_add(pool[..., a], pool[..., b])
+        full = torch.cat([pts, dev.point_neg(dev._tree_reduce(pts, 1))], -1)
+        bad = full.clone()
+        bad[n % 4, 7, n // 2] += 1
+        sets = [("identity", True, full), ("one limb changed", False, bad)]
+        if (na, nr) in FOLD_TORSION:
+            tor = full.clone()
+            tor[..., :1] = dev.point_add(full[..., :1], t8)
+            sets.append(("8-torsion", True, tor))
+        out += [(f"{label} {na} + {nr}", want, s[..., :na].contiguous(),
+                 s[..., na:].contiguous()) for label, want, s in sets]
+    return out
+
+
 # the sides at which K1 is compared and timed: the main path's widths
 # 128, 5120, 10240 and 8192 (K2 is, at every side)
 K1_SIDES = {("commit", "A"), ("window", "R"), ("batch", "A"), ("batch", "R")}
@@ -1128,6 +1182,15 @@ def phase_kernels(state, torch):
     cases["ed25519_msm_window_loop"] = k6
     cases["ed25519_select_tree"] = k7
     k4 = []
+
+    def k4_case(label, want, pa, pr):
+        got = cm.fold_verify(pa, pr)
+        plain = cm.fold_verify_plain(pa, pr)
+        check(bool(got) is want and bool(plain) is want,
+              f"K4 {label}: kernel {bool(got)}, plain {bool(plain)}")
+        k4.append({"shape": [int(pa.shape[-1]), int(pr.shape[-1])],
+                   "max_abs_err": 0, "args": (pa, pr), "phase": label})
+
     bad = convert.packed_from_numpy(state["window_packed_bad"], DEVICE)
     bad_pa, bad_pr = (cm.msm_window_major(cm.table17_neg(cd.decompress(w)[0]),
                                           m, n, group=1)
@@ -1140,12 +1203,9 @@ def phase_kernels(state, torch):
             ("window accept", True, main_k3[0]["partials"],
              main_k3[1]["partials"]),
             ("window reject", False, bad_pa, bad_pr)):
-        got = cm.fold_verify(pa, pr)
-        plain = cm.fold_verify_plain(pa, pr)
-        check(bool(got) is want and bool(plain) is want,
-              f"K4 {label}: kernel {bool(got)}, plain {bool(plain)}")
-        k4.append({"shape": [int(pa.shape[-1]), int(pr.shape[-1])],
-                   "max_abs_err": 0, "args": (pa, pr), "phase": label})
+        k4_case(label, want, pa, pr)
+    for label, want, pa, pr in _fold_sets(state, torch):
+        k4_case(label, want, pa, pr)
     cases["ed25519_fold_verify"] = k4
     for name, fn in _kernels().items():  # comparison launches do not count
         fn.launches = saved[name]
@@ -1184,7 +1244,9 @@ def _work(name, case):
     """(int32 multiply-adds, bytes) the function needs on these inputs:
     field products only; each input read once, each output written
     once.  An MSM over all windows counts its whole table; one window of
-    select-tree needs one table row per lane."""
+    select-tree needs one table row per lane.  K3 and K5 sum each
+    window's lanes into their partials' lane groups (K3's chunks, K5's
+    32-lane blocks), then run one Horner chain per partial."""
     from cometbft_tpu_torch.ops import cuda_msm as cm
 
     if name == "ed25519_decompress":
@@ -1198,8 +1260,10 @@ def _work(name, case):
         mags = case["args"][1]
         nwin, w = mags.shape
         nout = (cm.msm_geometry(w, nwin)[2]
-                if name == "ed25519_msm_window_major" else -(-w // 32))
-        ops = nwin * (w - 1) * ADD + (nwin - 1) * (4 * DBL + DBL_T + ADD)
+                if name == "ed25519_msm_window_major"
+                else -(-w // cm.GROUP_LANES))
+        ops = (nwin * (w - nout) * ADD
+               + nout * (nwin - 1) * (4 * DBL + DBL_T + ADD))
         return ops, w * 17 * 320 + nwin * w * 5 + nout * 320
     if name == "ed25519_msm_window_loop":
         mags, blk = case["args"][1], case["args"][3]

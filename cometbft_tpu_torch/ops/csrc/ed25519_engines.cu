@@ -7,20 +7,24 @@
 //   K6 ed25519_msm_window_loop  <- cometbft_tpu/ops/pallas_msm.py::msm_window_loop
 //   K7 ed25519_select_tree      <- cometbft_tpu/ops/pallas_msm.py::select_tree
 //
-// What bounds them: chains of 20-limb int32 field products per thread; the
-// window tables are read one row per lane and window, so the bytes are
-// small next to the operations.  One lane (K5) or one output lane (K6, K7)
-// per thread, every point in registers or thread-local memory, no atomics:
-// the result equals the plain torch versions in ops/cuda_msm.py limb for
-// limb.
+// What bounds them: chains of 20-limb int32 field products; the window
+// tables are read one row per lane and window, so the bytes are small
+// next to the operations.  K5 runs on thread quads (fe25519_quad.cuh):
+// its window sums across the card, four quads per window and block,
+// then K3's Horner chains (msm_quad.cuh).  K6 and K7 run one output
+// lane per thread, every point in registers or thread-local memory.  No
+// atomics: the results equal the plain torch versions in
+// ops/cuda_msm.py limb for limb.
 //
-// Every launcher returns cudaGetLastError() of its launch; the Python
-// wrapper raises when it is not 0.
+// Every launcher returns cudaGetLastError() of its launch (of each of its
+// launches); the Python wrapper raises when it is not 0.
 
 #include <cuda_runtime.h>
 #include <cstdint>
 
 #include "fe25519.cuh"
+#include "fe25519_quad.cuh"
+#include "msm_quad.cuh"
 
 using namespace fe25519;
 
@@ -30,8 +34,10 @@ using namespace fe25519;
 // blocks up to 1,024 lanes); they sit in thread-local memory.
 // ops/cuda_msm.py LOOP_MAX_ROWS mirrors it
 #define LOOP_MAX_ROWS 8
-// warps of a K5 block; ops/cuda_msm.py GROUP_WARPS mirrors it
+// warps of a K5 window-sum block, and thread quads per window sum;
+// ops/cuda_msm.py GROUP_WARPS and GROUP_QUADS mirror them
 #define GROUP_WARPS 4
+#define GROUP_QUADS 4
 
 // ------------------------------------------------------- K6 / K7 shared
 
@@ -111,70 +117,88 @@ select_tree_kernel(const int32_t* __restrict__ tab, const int32_t* __restrict__ 
 
 // ------------------------------------------------------------------ K5
 
-// The window sum of one 32-lane block on one warp: at step s, lane t < s
-// adds the point of lane t + s (the plain version's _block_tree order),
-// through shuffles; the sum is in lane 0.
-__device__ __forceinline__ pt warp_tree(pt p) {
-  const int t = threadIdx.x & 31;
-#pragma unroll 1
-  for (int s = 16; s >= 1; s >>= 1) {
-    pt q;
-#pragma unroll
-    for (int l = 0; l < NL; ++l) {
-      q.X.v[l] = __shfl_down_sync(0xffffffffu, p.X.v[l], s);
-      q.Y.v[l] = __shfl_down_sync(0xffffffffu, p.Y.v[l], s);
-      q.Z.v[l] = __shfl_down_sync(0xffffffffu, p.Z.v[l], s);
-      q.T.v[l] = __shfl_down_sync(0xffffffffu, p.T.v[l], s);
-    }
-    if (t < s) p = point_add(p, q);
-  }
-  return p;
-}
+// Window-major Straus over 32-lane blocks, in two launches, as K3:
+//   1. msm_grouped_sums_kernel, GROUP_QUADS thread quads per (window j,
+//      block b), all in parallel across the card: S[j][b] = the block's
+//      selected, signed rows reduced by the plain version's pairwise
+//      tree (lane t adds lane t + s for s = 16, 8, 4, 2, 1);
+//   2. msm_horner_kernel (msm_quad.cuh), one quad per block: acc =
+//      S[0][b], then acc <- straus_step(acc, S[j][b]) in MSB order.
+// Those are msm_window_major_grouped_plain's operations in its order, so
+// the partials equal it limb for limb, and their lane sum is K3's MSM.
+// The group G divides nwin (the wrapper checks) and decides nothing
+// here: on the TPU a group shares one fetch of the table block across
+// G window steps, but each quad reads only its own block's rows of its
+// own window, so there is nothing to share, and every window's sums run
+// at once whatever G is.
 
-// Window-major Straus with G = group windows per pass, one partial per
-// 32-lane block.  On the TPU a group shares one fetch of the table block
-// across G window steps; here a thread reads only its lane's row per
-// window, so there is no table block to share, and the group buys
-// parallelism instead: the block's GROUP_WARPS warps each select and
-// tree-reduce windows g, g + GROUP_WARPS, ... of the group over the
-// block's 32 lanes into the shared scratch wacc[g], then thread 0 closes
-// the group in MSB order with the 5-doublings-then-add chain per window
-// (the first window of the first group sets the accumulator).  The order
-// does not depend on G: the partials are msm_window_major_grouped_plain's
-// (K3's order before it was redesigned), and their lane sum is K3's MSM.
+// Window sums, GROUP_QUADS = 4 quads per task, 2 tasks per warp.  Write
+// T_s(t) for lane t after level s (T_s(t) = T_2s(t) + T_2s(t + s),
+// T_32(t) = row t).  Quad h < 4 computes T_4(h) from lanes h, h + 4, ..,
+// h + 28 depth first: leaf i (i = 0..3) is T_16(t) = row t + row t + 16
+// for t = h, h + 8, h + 4, h + 12; after leaf 1, T_8(h) = leaf 0 + leaf
+// 1; after leaf 3, T_8(h + 4) = leaf 2 + leaf 3, then T_4(h) = T_8(h) +
+// T_8(h + 4).  Each point operation has one call site, in a loop:
+// unrolled, the same walk took 216 registers instead of 168, and an SM
+// held two blocks instead of three.  Levels 2 and 1 are quad h < s adding quad h + s by
+// shuffles.  Every add of the plain tree is made once on the same two
+// operands (the two cross-quad levels are computed by all four quads,
+// the quads past s dropping theirs).  The leaves' right rows need 2d T,
+// the one product of to_cached: thread q computes leaf q's in one round
+// and hands each to thread 2 by shuffle, as K3's holders do, so a leaf
+// add costs 2.25 product rounds and a tree add 3: 24 rounds in series
+// per task.  (One quad per task does fewer rounds in all but holds more
+// pending sums in registers; eight quads, four lanes each, waste more
+// adds at levels 4 .. 1: both measured slower at the engine
+// configurations' widths.)  Lanes past W are the identity; magnitudes
+// outside 0..16 select row 0.  Spare quads past the last task repeat it
+// and store nothing.
 // tab: (17, 4, 20, W); mags: (nwin, W) int32; negs: (nwin, W) uint8;
-// out: (4, 20, nblk) partials, nblk = ceil(W / 32); nwin % group == 0;
-// dynamic shared memory: group * 80 int32.
+// sums: (nwin, 4, 20, nblk), nblk = ceil(W / 32).
 __global__ void __launch_bounds__(GROUP_WARPS * 32)
-msm_window_major_grouped_kernel(const int32_t* __restrict__ tab,
-                                const int32_t* __restrict__ mags,
-                                const uint8_t* __restrict__ negs, int64_t w, int nwin,
-                                int group, int32_t* __restrict__ out) {
-  extern __shared__ int32_t wacc[];    // [g][coord * 20 + limb]
-  const int warp = threadIdx.x >> 5;
-  const int t = threadIdx.x & 31;
-  const int64_t lane = (int64_t)blockIdx.x * 32 + t;
-  pt acc = identity();
+msm_grouped_sums_kernel(const int32_t* __restrict__ tab, const int32_t* __restrict__ mags,
+                        const uint8_t* __restrict__ negs, int64_t w, int nwin, int64_t nblk,
+                        int32_t* __restrict__ sums) {
+  const int q = quad_q();
+  const int wq = (threadIdx.x & 31) >> 2;          // quad within its warp
+  const int h = wq % GROUP_QUADS;
+  const int64_t quad = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 2;
+  const int64_t tasks = (int64_t)nwin * nblk;
+  if ((quad - wq) / GROUP_QUADS >= tasks) return;  // a whole spare warp
+  const int64_t mine = quad / GROUP_QUADS;
+  const int64_t task = mine < tasks ? mine : tasks - 1;
+  const int64_t j = task / nblk;
+  const int64_t b = task % nblk;
+  const int32_t* mj = mags + j * w;
+  const uint8_t* nj = negs + j * w;
+  const int64_t base = b * 32 + h;
+  // leaf i's left lane: base + 4 * (i = 0, 1, 2, 3 -> 0, 2, 1, 3)
+  const fe t2d = mul(load_signed(tab, mj, nj, w, base + 4 * ((q & 1) << 1 | q >> 1) + 16, 3),
+                     fe_const(D2_LIMBS));
+  // after leaf i, for each trailing one bit l of i: v = st_l + v (st_0
+  // the pending leaf, st_1 the pending T_8); then v waits in st_l
+  fe st0, st1, v;
 #pragma unroll 1
-  for (int jg = 0; jg < nwin / group; ++jg) {
+  for (int i = 0; i < 4; ++i) {
+    const int64_t right = base + 4 * ((i & 1) << 1 | i >> 1) + 16;
+    const fe u = load_signed(tab, mj, nj, w, right, q == 3 ? 2 : 0);   // X, or Z
+    const fe y = load_signed(tab, mj, nj, w, right, 1);
+    const fe d = qshfl(t2d, i);
+    const fe cn = fsel(q == 0, sub(y, u),
+                       fsel(q == 1, add(y, u), fsel(q == 2, d, mul_word(u, 2))));
+    v = qadd_cached(load_signed(tab, mj, nj, w, right - 16, q), cn);
+    int l = 0;
 #pragma unroll 1
-    for (int g = warp; g < group; g += GROUP_WARPS) {
-      const int64_t j = (int64_t)jg * group + g;
-      pt p = lane < w ? select_signed(tab, mags + j * w, negs + j * w, w, lane) : identity();
-      p = warp_tree(p);
-      if (t == 0) store_point(wacc + g * 4 * NL, 1, 0, p);
-    }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-#pragma unroll 1
-      for (int g = 0; g < group; ++g) {
-        pt p = load_point(wacc + g * 4 * NL, 1, 0);
-        acc = (jg == 0 && g == 0) ? p : straus_step(acc, p);
-      }
-    }
-    __syncthreads();
+    for (; l < 2 && ((i >> l) & 1); ++l) v = qpoint_add(fsel(l == 0, st0, st1), v);
+    st0 = fsel(l == 0, v, st0);
+    st1 = fsel(l == 1, v, st1);
   }
-  if (threadIdx.x == 0) store_point(out, gridDim.x, blockIdx.x, acc);
+#pragma unroll 1
+  for (int s = GROUP_QUADS / 2; s >= 1; s >>= 1) {
+    const fe r = qpoint_add(v, qshfl_down(v, s));
+    v = fsel(h < s, r, v);
+  }
+  if (h == 0 && mine < tasks) store_fe(sums + j * 4 * NL * nblk, nblk, b, q, v);
 }
 
 // ----------------------------------------------------------- launchers
@@ -200,25 +224,25 @@ int ed25519_select_tree(const void* tab, const void* mag, const void* neg, int64
   return (int)cudaGetLastError();
 }
 
+// sums: (nwin, 4, 20, ceil(W / 32)) scratch; out: (4, 20, ceil(W / 32)).
 int ed25519_msm_window_major_grouped(const void* tab, const void* mags, const void* negs,
-                                     int64_t w, int nwin, int group, void* out,
+                                     int64_t w, int nwin, void* sums, void* out,
                                      void* stream) {
-  int grid = (int)((w + 31) / 32);
-  size_t smem = (size_t)group * 4 * NL * sizeof(int32_t);
-  if (smem > 48 * 1024) {
-    cudaError_t rc = cudaFuncSetAttribute(msm_window_major_grouped_kernel,
-                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                          (int)smem);
-    if (rc != cudaSuccess) return (int)rc;
-  }
-  msm_window_major_grouped_kernel<<<grid, GROUP_WARPS * 32, smem, (cudaStream_t)stream>>>(
-      (const int32_t*)tab, (const int32_t*)mags, (const uint8_t*)negs, w, nwin, group,
-      (int32_t*)out);
-  return (int)cudaGetLastError();
+  const int64_t nblk = (w + 31) / 32;
+  const int64_t per_block = GROUP_WARPS * 8 / GROUP_QUADS;   // tasks
+  msm_grouped_sums_kernel<<<(unsigned)(((int64_t)nwin * nblk + per_block - 1) / per_block),
+                            GROUP_WARPS * 32, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)tab, (const int32_t*)mags, (const uint8_t*)negs, w, nwin, nblk,
+      (int32_t*)sums);
+  int rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  return launch_msm_horner((const int32_t*)sums, nwin, nblk, (int32_t*)out,
+                           (cudaStream_t)stream);
 }
 
 int ed25519_loop_threads(void) { return LOOP_THREADS; }
 int ed25519_loop_max_rows(void) { return LOOP_MAX_ROWS; }
 int ed25519_group_warps(void) { return GROUP_WARPS; }
+int ed25519_group_quads(void) { return GROUP_QUADS; }
 
 }  // extern "C"

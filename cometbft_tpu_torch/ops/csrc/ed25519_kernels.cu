@@ -17,7 +17,7 @@
 // (fe25519_quad.cuh), one coordinate per thread; K1, whose chain is
 // single field products in series, splits each product across a thread
 // quad (fe25519_split.cuh); K3 also runs its window sums across
-// the whole card.  K4 keeps one thread per partial.  Faster radix and
+// the whole card; K4 runs one quad per fold slot.  Faster radix and
 // tensor-core products are later work.
 //
 // Every launcher returns cudaGetLastError() of its launch (of each of its
@@ -29,17 +29,17 @@
 #include "fe25519.cuh"
 #include "fe25519_quad.cuh"
 #include "fe25519_split.cuh"
+#include "msm_quad.cuh"
 
 using namespace fe25519;
 
-// warps of a K3 window-sum block, 8 point-holding quads each, and threads
-// of a K3 Horner block (one warp: 8 chains); ops/cuda_msm.py MSM_WARPS
-// and CHAIN_THREADS mirror them
+// warps of a K3 window-sum block, 8 point-holding quads each;
+// ops/cuda_msm.py MSM_WARPS mirrors it (CHAIN_THREADS: msm_quad.cuh)
 #define MSM_WARPS 4
 #define MSM_HOLDERS (8 * MSM_WARPS)
-#define CHAIN_THREADS 32
-// threads of the single K4 block; ops/cuda_msm.py FOLD_THREADS mirrors it
-#define FOLD_THREADS 128
+// slots of the K4 fold, one thread quad each, so the block has
+// 4 * FOLD_SLOTS threads; ops/cuda_msm.py FOLD_THREADS mirrors it
+#define FOLD_SLOTS 128
 #define DECOMPRESS_THREADS 128
 #define TABLE_THREADS 128
 
@@ -138,72 +138,7 @@ table17_neg_kernel(const int32_t* __restrict__ pt_in, int64_t w,
   }
 }
 
-// ------------------------------------------------------ block tree (K4)
-
-// Shared-memory copy of one point per thread, [coord*20 + limb][thread],
-// so a warp's stores and loads hit 32 consecutive banks.
-template <int N>
-__device__ __forceinline__ void smem_store(int32_t (*sm)[N], int t, const pt& p) {
-#pragma unroll
-  for (int l = 0; l < NL; ++l) {
-    sm[l][t] = p.X.v[l];
-    sm[NL + l][t] = p.Y.v[l];
-    sm[2 * NL + l][t] = p.Z.v[l];
-    sm[3 * NL + l][t] = p.T.v[l];
-  }
-}
-
-template <int N>
-__device__ __forceinline__ pt smem_load(int32_t (*sm)[N], int t) {
-  pt p;
-#pragma unroll
-  for (int l = 0; l < NL; ++l) {
-    p.X.v[l] = sm[l][t];
-    p.Y.v[l] = sm[NL + l][t];
-    p.Z.v[l] = sm[2 * NL + l][t];
-    p.T.v[l] = sm[3 * NL + l][t];
-  }
-  return p;
-}
-
-// Pairwise halving tree over the block's points: at step s, thread
-// t < s adds the point of thread t + s (the plain version's
-// pts[..., :s] + pts[..., s:2s], in the same order).  Thread 0 returns
-// the sum.
-template <int N>
-__device__ __forceinline__ pt block_tree(int32_t (*sm)[N], pt p) {
-  const int t = threadIdx.x;
-#pragma unroll 1
-  for (int s = N / 2; s >= 1; s >>= 1) {
-    if (t >= s && t < 2 * s) smem_store<N>(sm, t, p);
-    __syncthreads();
-    if (t < s) p = point_add(p, smem_load<N>(sm, t + s));
-    __syncthreads();
-  }
-  return p;
-}
-
 // ------------------------------------------------------------------ K3
-
-// One coordinate of a lane's selected, signed table row (the plain
-// version's _select_signed): row |d| of the lane, X and T negated (plain
-// arithmetic negation) when the sign is set; a magnitude outside 0..16
-// selects row 0, the identity; a lane at or past W is the identity.
-// mags / negs point at one window's (W,) row.
-__device__ __forceinline__ fe load_signed(const int32_t* __restrict__ tab,
-                                          const int32_t* __restrict__ mags,
-                                          const uint8_t* __restrict__ negs, int64_t w,
-                                          int64_t lane, int coord) {
-  if (lane >= w) return fe_small(coord == 1 || coord == 2 ? 1 : 0);
-  int m = mags[lane];
-  if (m < 0 || m > 16) m = 0;
-  fe r = load_fe(tab + (int64_t)m * 4 * NL * w, w, lane, coord);
-  if (negs[lane] && (coord == 0 || coord == 3)) {
-#pragma unroll
-    for (int l = 0; l < NL; ++l) r.v[l] = -r.v[l];
-  }
-  return r;
-}
 
 // Straus MSM with signed 5-bit windows, MSB-first, in two launches.  The
 // TPU kernel runs its grid in order and carries one accumulator: per
@@ -212,9 +147,10 @@ __device__ __forceinline__ fe load_signed(const int32_t* __restrict__ tab,
 //   1. msm_window_sums_kernel, one block per (window j, chunk c), all in
 //      parallel across the card: S[j][c] = the chunk's selected, signed
 //      rows summed, with no doubling in it;
-//   2. msm_horner_kernel, one quad per chunk: acc = S[0][c], then
-//      acc <- 32 acc + S[j][c] (4 doublings without T, one with T, the
-//      add) for j = 1 .. nwin-1; acc is partial c.
+//   2. msm_horner_kernel (msm_quad.cuh, shared with K5), one quad per
+//      chunk: acc = S[0][c], then acc <- 32 acc + S[j][c] (4 doublings
+//      without T, one with T, the add) for j = 1 .. nwin-1; acc is
+//      partial c.
 // The recurrence is linear, so the lane sum of the k partials is the MSM.
 // The chain, (nwin - 1) Straus steps in series, is the latency floor of
 // the method.  Every point operation runs on a thread quad
@@ -287,72 +223,70 @@ msm_window_sums_kernel(const int32_t* __restrict__ tab, const int32_t* __restric
   }
 }
 
-// Horner chains, one quad per chunk.  The next window's sum is loaded one
-// step ahead; thread 3 computes its 2d T in the free product slot of the
-// first doubling (no T), so a Straus step is 12 product rounds in series.
-// Thread q loads coordinates X, Y (q < 3) or Z, T (q = 3) of each sum:
-// the ones its round-1 operand of the add needs.
-// sums: (nwin, 4, 20, k); out: (4, 20, k).
-__global__ void __launch_bounds__(CHAIN_THREADS)
-msm_horner_kernel(const int32_t* __restrict__ sums, int nwin, int64_t k,
-                  int32_t* __restrict__ out) {
-  const int q = quad_q();
-  const int64_t chain = (int64_t)blockIdx.x * (CHAIN_THREADS / 4) + (threadIdx.x >> 2);
-  const int64_t c = chain < k ? chain : k - 1;   // spare quads repeat the last chain
-  const int64_t win = 4 * NL * k;
-  const int ca = q == 3 ? 2 : 0;
-  const fe d2 = fe_const(D2_LIMBS);
-  fe acc = load_fe(sums, k, c, q);
-  fe na = acc, nb = acc;
-  if (nwin > 1) {
-    na = load_fe(sums + win, k, c, ca);
-    nb = load_fe(sums + win, k, c, ca + 1);
-  }
-#pragma unroll 1
-  for (int j = 1; j < nwin; ++j) {
-    const fe sa = na, sb = nb;                   // X, Y or Z, T of S[j]
-    if (j + 1 < nwin) {
-      na = load_fe(sums + (j + 1) * win, k, c, ca);
-      nb = load_fe(sums + (j + 1) * win, k, c, ca + 1);
-    }
-    fe t2d;
-    acc = qdouble_side(acc, sb, d2, t2d);
-#pragma unroll 1
-    for (int r = 0; r < 3; ++r) acc = qdouble(acc, false);
-    acc = qdouble(acc, true);
-    const fe d = qshfl(t2d, 3);
-    const fe cn = fsel(q == 0, sub(sb, sa),
-                       fsel(q == 1, add(sb, sa), fsel(q == 2, d, mul_word(sa, 2))));
-    acc = qadd_cached(acc, cn);
-  }
-  if (chain < k) store_fe(out, k, c, q, acc);
-}
-
 // ------------------------------------------------------------------ K4
 
-// RLC epilogue in one block: thread t sums lanes t, t + T, ... of the
-// concatenated partials [A | R] (strided sums in place of the TPU's
-// tile halving), the block tree-reduces (in place of the pltpu.roll
-// butterfly), thread 0 runs the 3 cofactor doublings and the frozen
-// identity test X == 0 and Y == Z.  Takes any widths.
+// RLC epilogue in one block of FOLD_SLOTS thread quads, in the plain
+// version's order (fold_verify_plain), every point operation on a quad
+// (fe25519_quad.cuh), thread q holding coordinate q:
+//   1. slot t starts at the identity and adds the concatenated partials
+//      [A | R] t, t + FOLD_SLOTS, ... (strided sums in place of the TPU's
+//      tile halving); every slot runs the same number of adds and keeps
+//      a result only where its partial exists, so whole warps shuffle
+//      (letting a warp with no partial left stop early made the kernel
+//      spill at its 128-register cap);
+//   2. a pairwise halving tree over the slots (slot t < s adds slot
+//      t + s, in place of the pltpu.roll butterfly): s = 64 .. 8 across
+//      warps through shared memory, whole warps adding, then s = 4, 2, 1
+//      inside warp 0 by shuffles;
+//   3. quad 0 runs the 3 cofactor doublings without T, then the frozen
+//      identity test X == 0 and Y == Z.
+// A point operation is 2-3 product rounds in series, about 30 rounds in
+// all at one partial per slot.  Takes any widths.
 // pa: (4, 20, na); pr: (4, 20, nr); out: (1,) int32 verdict.
-__global__ void __launch_bounds__(FOLD_THREADS)
+__global__ void __launch_bounds__(4 * FOLD_SLOTS)
 fold_verify_kernel(const int32_t* __restrict__ pa, int64_t na,
                    const int32_t* __restrict__ pr, int64_t nr,
                    int32_t* __restrict__ out) {
-  __shared__ int32_t sm[4 * NL][FOLD_THREADS];
-  const int t = threadIdx.x;
-  pt acc = identity();
+  // the upper half of the live slots at one tree level, [limb][4 slot + q]
+  __shared__ int32_t sm[NL][2 * FOLD_SLOTS];
+  const int q = quad_q();
+  const int slot = threadIdx.x >> 2;
+  const int64_t n = na + nr;
+  fe acc = fe_small(q == 1 || q == 2 ? 1 : 0);       // the identity
 #pragma unroll 1
-  for (int64_t j = t; j < na + nr; j += FOLD_THREADS) {
-    pt q = j < na ? load_point(pa, na, j) : load_point(pr, nr, j - na);
-    acc = point_add(acc, q);
+  for (int64_t j0 = 0; j0 < n; j0 += FOLD_SLOTS) {
+    const int64_t j = j0 + slot < n ? j0 + slot : n - 1;
+    const fe p = j < na ? load_fe(pa, na, j, q) : load_fe(pr, nr, j - na, q);
+    acc = fsel(j0 + slot < n, qpoint_add(acc, p), acc);
   }
-  acc = block_tree<FOLD_THREADS>(sm, acc);
-  if (t == 0) {
 #pragma unroll 1
-    for (int k = 0; k < 3; ++k) acc = point_double(acc, false);
-    out[0] = (is_zero(acc.X) && eq(acc.Y, acc.Z)) ? 1 : 0;
+  for (int s = FOLD_SLOTS / 2; s >= 8; s >>= 1) {    // whole warps
+    if (slot >= s && slot < 2 * s) {
+#pragma unroll
+      for (int l = 0; l < NL; ++l) sm[l][threadIdx.x - 4 * s] = acc.v[l];
+    }
+    __syncthreads();
+    fe other;
+    if (slot < s) {
+#pragma unroll
+      for (int l = 0; l < NL; ++l) other.v[l] = sm[l][threadIdx.x];
+    }
+    __syncthreads();
+    if (slot < s) acc = qpoint_add(acc, other);
+  }
+  if (threadIdx.x < 32) {
+#pragma unroll 1
+    for (int s = 4; s >= 1; s >>= 1) {
+      const fe r = qpoint_add(acc, qshfl_down(acc, s));
+      acc = fsel(slot < s, r, acc);
+    }
+#pragma unroll 1
+    for (int k = 0; k < 3; ++k) acc = qdouble(acc, false);
+    // X == 0 on thread 0 and Y == Z (Y - Z == 0) on thread 1, together
+    const fe y = qshfl(acc, 1), z = qshfl(acc, 2);
+    const bool zero = is_zero(q == 1 ? sub(y, z) : acc);
+    const bool y_eq_z = __shfl_sync(FULL_MASK, zero, 1);
+    if (threadIdx.x == 0) out[0] = (zero && y_eq_z) ? 1 : 0;
   }
 }
 
@@ -385,21 +319,19 @@ int ed25519_msm_window_major(const void* tab, const void* mags, const void* negs
       (int32_t*)sums);
   int rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
-  const int64_t per_block = CHAIN_THREADS / 4;
-  msm_horner_kernel<<<(unsigned)((k + per_block - 1) / per_block), CHAIN_THREADS, 0,
-                      (cudaStream_t)stream>>>((const int32_t*)sums, nwin, k, (int32_t*)out);
-  return (int)cudaGetLastError();
+  return launch_msm_horner((const int32_t*)sums, nwin, k, (int32_t*)out,
+                           (cudaStream_t)stream);
 }
 
 int ed25519_fold_verify(const void* pa, int64_t na, const void* pr, int64_t nr,
                         void* out, void* stream) {
-  fold_verify_kernel<<<1, FOLD_THREADS, 0, (cudaStream_t)stream>>>(
+  fold_verify_kernel<<<1, 4 * FOLD_SLOTS, 0, (cudaStream_t)stream>>>(
       (const int32_t*)pa, na, (const int32_t*)pr, nr, (int32_t*)out);
   return (int)cudaGetLastError();
 }
 
 int ed25519_msm_warps(void) { return MSM_WARPS; }
 int ed25519_chain_threads(void) { return CHAIN_THREADS; }
-int ed25519_fold_threads(void) { return FOLD_THREADS; }
+int ed25519_fold_slots(void) { return FOLD_SLOTS; }
 
 }  // extern "C"

@@ -27,9 +27,13 @@ chain's (nwin - 1) Straus steps are the latency floor of the method.
 
 K5 `msm_window_major_grouped` replaces `msm_window_major(group > 1)`
 (`_window_major_grouped_kernel`, pallas_call at :624): partials of
-GROUP_LANES-lane blocks, the block's warps reducing the G windows of a
-group in parallel and one thread closing the group; the order is the
-one K3 ran before its redesign.
+GROUP_LANES-lane blocks, split as K3 is: GROUP_QUADS thread quads per
+(window, block) reduce the block's 32 selected rows by the pairwise
+tree, a quad holding eight lanes (levels 16, 8 and 4 inside the quad, 2
+and 1 across quads), all windows at once across the card; then K3's
+Horner kernel closes each block's windows in MSB order.  The group is
+checked and changes nothing on the card: a quad reads only its own
+lanes' rows, so there is no table fetch for a group to share.
 
 K6 `msm_window_loop` replaces `pallas_msm.py::msm_window_loop`
 (`_window_loop_kernel`, pallas_call at :317), and K7 `select_tree`
@@ -40,11 +44,15 @@ lanes, block-major.  One thread per output lane; K6 carries the lane's
 accumulator over all windows, K7 computes one window.
 
 K4 `fold_verify` replaces `pallas_msm.py::fold_verify`
-(`_make_fold_kernel`, pallas_call at :730).  One block: strided
-per-thread sums over both sides' partials, a shared-memory tree in place
-of the `pltpu.roll` butterfly, 3 cofactor doublings and the frozen
-identity test.  It takes any widths, so the JAX package's `_prefold`
-and its MAX_FOLD_LANES bound have no counterpart here.
+(`_make_fold_kernel`, pallas_call at :730).  One block of FOLD_THREADS
+slots, one thread quad each: strided per-slot sums over both sides'
+partials, a pairwise tree over the slots (across warps through shared
+memory, then by shuffles) in place of the `pltpu.roll` butterfly, 3
+cofactor doublings and the frozen identity test.  Bound: operations,
+one point add per partial; the time is the chain of about ten point
+operations in series, each 2-3 product rounds on a quad.  It takes any
+widths, so the JAX package's `_prefold` and its MAX_FOLD_LANES bound
+have no counterpart here.
 
 The MSM kernels take any width: where the JAX package finds no legal
 block (`blk_for` is None) it runs XLA, while here lanes past W
@@ -72,11 +80,12 @@ MSM_HOLDERS = 8 * MSM_WARPS   # point-holding quads per K3 window-sum block
 MSM_MAX_ROWS = 32        # most lanes one K3 holder sums per window
 MSM_MIN_BLOCKS = 132     # K3 window-sum blocks to aim for: 1 per H100 SM
 CHAIN_THREADS = 32       # threads of a K3 Horner block: csrc CHAIN_THREADS
-GROUP_LANES = 32         # lanes per K5 block (one warp)
-FOLD_THREADS = 128       # threads of the K4 block: csrc FOLD_THREADS
+GROUP_LANES = 32         # lanes per K5 block: the plain tree's width
+FOLD_THREADS = 128       # K4 fold slots, a thread quad each: csrc FOLD_SLOTS
 LOOP_THREADS = 128       # threads per K6 / K7 block: csrc LOOP_THREADS
 LOOP_MAX_ROWS = 8        # most rows a K6 / K7 thread sums: csrc LOOP_MAX_ROWS
-GROUP_WARPS = 4          # warps of a K5 block: csrc GROUP_WARPS
+GROUP_WARPS = 4          # warps of a K5 window-sum block: csrc GROUP_WARPS
+GROUP_QUADS = 4          # thread quads per K5 window sum: csrc GROUP_QUADS
 
 
 # ---------------------------------------------------------------------------
@@ -152,10 +161,11 @@ def _ed():
 _LIB_SIZES = {
     "ed25519_kernels": {"ed25519_msm_warps": MSM_WARPS,
                         "ed25519_chain_threads": CHAIN_THREADS,
-                        "ed25519_fold_threads": FOLD_THREADS},
+                        "ed25519_fold_slots": FOLD_THREADS},
     "ed25519_engines": {"ed25519_loop_threads": LOOP_THREADS,
                         "ed25519_loop_max_rows": LOOP_MAX_ROWS,
-                        "ed25519_group_warps": GROUP_WARPS},
+                        "ed25519_group_warps": GROUP_WARPS,
+                        "ed25519_group_quads": GROUP_QUADS},
 }
 
 
@@ -339,13 +349,16 @@ def msm_window_major_grouped(tab, mags, negs, group: int):
         return msm_window_major_grouped_plain(tab, mags, negs, group)
     tab, mags, negs = _require_msm(tab, mags, negs)
     w = tab.shape[-1]
-    out = torch.empty((4, fe.NLIMBS, -(-w // GROUP_LANES)),
-                      dtype=torch.int32, device=tab.device)
+    nblk = -(-w // GROUP_LANES)
+    sums = torch.empty((nwin, 4, fe.NLIMBS, nblk), dtype=torch.int32,
+                       device=tab.device)
+    out = torch.empty((4, fe.NLIMBS, nblk), dtype=torch.int32,
+                      device=tab.device)
     lib = _lib("ed25519_engines")
     with torch.cuda.device(tab.device):
         rc = lib.ed25519_msm_window_major_grouped(
             devmod.ptr(tab), devmod.ptr(mags), devmod.ptr(negs), w, nwin,
-            group, devmod.ptr(out), devmod.stream(tab))
+            devmod.ptr(sums), devmod.ptr(out), devmod.stream(tab))
     devmod.check_launch(rc, "ed25519_msm_window_major_grouped")
     msm_window_major_grouped.launches += 1
     return out

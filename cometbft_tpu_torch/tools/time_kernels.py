@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Time the port's kernels K1 (decompress), K2 (table17_neg) and K3
-(msm_window_major) of one checkout on the card, at the main path's
-widths, and optionally count the instruction mix of K1's and K2's
-longest loops.
+"""Time the port's kernels K1 (decompress), K2 (table17_neg), K3
+(msm_window_major), K4 (fold_verify) and K5 (msm_window_major_grouped)
+of one checkout on the card, at the main path's widths, and optionally
+count the instruction mix of K1's and K2's longest loops.
 
     python3 cometbft_tpu_torch/tools/time_kernels.py [--root DIR] [--sass]
 
@@ -20,10 +20,18 @@ library's C functions into preallocated outputs (the wrappers' Python
 work, some tens of microseconds a call, would otherwise be what is timed
 at the small widths); K3, at 52 windows on the A-side widths (128,
 10240) and 26 on the R-side ones (5120, 8192), with random digits,
-through its wrapper.  Each time is the median over 7 runs of the
+through its wrapper.  K4 is launched through its C function into a
+preallocated verdict, at the main path's partial counts (commit 4 + 4,
+window 4 + 10, batch 10 + 8; A side decoded points, R side their
+negations); K5 the same way into
+preallocated window sums and partials, at K3's four shapes with groups
+4 and 13 (group_for's 4 / 2 and 13 / 13 on the 52- / 26-window sides),
+taking either C interface: with the group (before K5 ran on quads) or
+with the window-sum scratch.  Each time is the median over 7 runs of the
 CUDA-event time of 20 calls made back to back, divided by 20.
-Before timing, each kernel is held against its plain version at
-W = 129.  --sass disassembles
+Before timing, each kernel is held against its plain version: K1 and K2
+at W = 129, K4's verdict on a 10 + 10 set, K5 at 4 windows x 129 lanes,
+group 2.  --sass disassembles
 the built library with cuobjdump and prints, for each of the two
 kernels, the opcode counts of its longest loop (a backward branch and
 its target).  Prints one JSON line.
@@ -33,6 +41,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import ctypes
 import json
 import re
 import subprocess
@@ -40,6 +49,7 @@ import sys
 from pathlib import Path
 
 WIDTHS = (128, 5120, 8192, 10240)
+K4_SHAPES = ((4, 4), (4, 10), (10, 8))     # commit, window, batch
 
 
 def _time(torch, fn, args, reps=7, inner=20):
@@ -105,6 +115,7 @@ def main() -> int:
     from cometbft_tpu_torch.ops import cuda_decompress as cd
     from cometbft_tpu_torch.ops import cuda_msm as cm
     from cometbft_tpu_torch.ops import device as devmod
+    from cometbft_tpu_torch.ops import ed25519 as dev
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -119,11 +130,36 @@ def main() -> int:
     pk, okk = cd.decompress(w129)
     pp, okp = cd.decompress_plain(w129)
     k1_err = int((pk - pp).abs().max()) + int((okk != okp).sum())
-    k2_err = int((cm.table17_neg(pp) - cm.table17_neg_plain(pp)).abs().max())
+    tab129 = cm.table17_neg(pp)
+    k2_err = int((tab129 - cm.table17_neg_plain(pp)).abs().max())
+    # ten decoded points and their negations: together they sum to the
+    # identity
+    pts = pp[..., okp.nonzero()[:10, 0]]
+    neg = dev.point_neg(pts)
+    k4_ok = (bool(cm.fold_verify(pts, neg))
+             and bool(cm.fold_verify_plain(pts, neg)))
+    m4 = torch.randint(0, 17, (4, 129), dtype=torch.int32, device="cuda",
+                       generator=gen)
+    n4 = torch.randint(0, 2, (4, 129), device="cuda", generator=gen) != 0
+    k5_err = int((cm.msm_window_major_grouped(tab129, m4, n4, 2)
+                  - cm.msm_window_major_grouped_plain(tab129, m4, n4, 2))
+                 .abs().max())
     rec = {"card": card, "root": str(root), "k1_err_w129": k1_err,
-           "k2_err_w129": k2_err, "k1_ms": {}, "k2_ms": {}, "k3_ms": {}}
+           "k2_err_w129": k2_err, "k4_verdicts_equal": k4_ok,
+           "k5_err_4x129": k5_err, "k1_ms": {}, "k2_ms": {}, "k3_ms": {},
+           "k4_ms": {}, "k5_ms": {}}
     lib = _build.load("ed25519_kernels")
+    eng = _build.load("ed25519_engines")
+    k5_group_arg = (_build.SIGNATURES["ed25519_engines"]
+                    ["ed25519_msm_window_major_grouped"][5] is ctypes.c_int)
     stream = devmod.stream(w129)
+    verdict = torch.empty((1,), dtype=torch.int32, device="cuda")
+    for na, nr in K4_SHAPES:
+        pa, pr = pts[..., :na].contiguous(), neg[..., :nr].contiguous()
+        rec["k4_ms"][f"{na}+{nr}"] = _time(
+            torch, lib.ed25519_fold_verify,
+            (devmod.ptr(pa), na, devmod.ptr(pr), nr, devmod.ptr(verdict),
+             stream))
     for w in WIDTHS:
         wd = words(w)
         pt = torch.empty((4, 20, w), dtype=torch.int32, device="cuda")
@@ -140,6 +176,18 @@ def main() -> int:
                              generator=gen) != 0
         rec["k3_ms"][f"{nwin}x{w}"] = _time(
             torch, lambda: cm.msm_window_major(tab, mags, negs, group=1), ())
+        nblk = -(-w // cm.GROUP_LANES)
+        sums = torch.empty((nwin, 4, 20, nblk), dtype=torch.int32,
+                           device="cuda")
+        out = torch.empty((4, 20, nblk), dtype=torch.int32, device="cuda")
+        negs8 = negs.view(torch.uint8)
+        for requested in (4, 13):
+            g = cm.group_for(nwin, requested)
+            middle = (g,) if k5_group_arg else (devmod.ptr(sums),)
+            rec["k5_ms"][f"{nwin}x{w} G{g}"] = _time(
+                torch, eng.ed25519_msm_window_major_grouped,
+                (devmod.ptr(tab), devmod.ptr(mags), devmod.ptr(negs8), w,
+                 nwin, *middle, devmod.ptr(out), stream))
     if args.sass:
         so = _build._target("ed25519_kernels")
         tool = Path(_build.nvcc()).parent / "cuobjdump"
@@ -148,7 +196,7 @@ def main() -> int:
         rec["loop_mix"] = {k: _loop_mix(sass, k) for k in
                            ("decompress_kernel", "table17_neg_kernel")}
     print(json.dumps(rec), flush=True)
-    return 0 if k1_err == 0 and k2_err == 0 else 1
+    return 0 if k1_err == 0 and k2_err == 0 and k4_ok and k5_err == 0 else 1
 
 
 if __name__ == "__main__":
