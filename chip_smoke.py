@@ -39,18 +39,24 @@ result):
              n = 4 against the same function over four "cpu" shards;
   6. engines the same entry points under each MSM engine configuration
              (the JAX package's flags, set on the port's modules):
-             window_loop (K6), grouped_g4 and grouped_g13 (K5),
-             select_tree (K7 in the window scan, no fold kernel) and
-             fold_off (K3, no fold kernel) — the commit (accept and the
-             tampered signature), the window (accept and the bad height),
-             and for window_loop and grouped_g4 the clean 8,192 batch;
-             each must launch exactly its configuration's kernels;
+             window_loop (K6), window_loop_blk2048 (K6 under
+             COMETBFT_TPU_PALLAS_BLK=2048: 1, 8 and 16 rows per output
+             lane at the commit's, the window's and the batch's widths),
+             grouped_g4 and grouped_g13 (K5), select_tree (K7 in the
+             window scan, no fold kernel) and fold_off (K3, no fold
+             kernel) — the commit (accept and the tampered signature),
+             the window (accept and the bad height), and for the two
+             window_loop configurations and grouped_g4 the clean 8,192
+             batch, each verdict the default engine's; each must launch
+             exactly its configuration's kernels;
   7. kernels each kernel vs its plain version on the card, at the shapes
              phases 2-4 gave it (exact integer equality; K1 at the four
              main-path widths and on hostile encodings, K1 and K2 also at
              the ragged widths 1, 7 and 129; K3 also at the commit's two
              sides and on a 32-lane slice, where its Horner chain is all
-             the work), K5 also vs K3 (projectively), and K3, K5, K6, K7
+             the work; K6 and K7 also at blocks of 1,024 and 2,048 lanes,
+             8 and 16 rows per output lane, on the batch's sides), K5 and
+             K6 also vs K3 (projectively), and K3, K5, K6, K7
              on digits with magnitudes outside 0..16; K4's verdict also
              on partial sets made on the card from the seed: sums of
              identity at 2 to 4,608 partials, each also with one limb
@@ -114,16 +120,18 @@ K8 = ("ed25519_sharded_msm", "ed25519_rlc_verify_sharded")
 MESH_SHARDS = (1, 2, 4)
 NVLINK_BYTES_PER_S = 450e9     # one direction, H100 SXM data sheet
 
-# the engine flags (ops/ed25519 USE_PALLAS_*, ops/cuda_msm WIN_GROUP) at
+# the engine flags (ops/ed25519 USE_PALLAS_*, ops/cuda_msm WIN_GROUP, BLK) at
 # the JAX package's defaults, and each configuration of phase 6: its
 # flags, the kernels it must launch (and no other), whether it also runs
 # the 8,192 batch
 DEFAULT_ENGINE = {"USE_PALLAS_MSM_MAJOR": True, "USE_PALLAS_MSM_LOOP": True,
                   "USE_PALLAS_TREE": False, "USE_PALLAS_FOLD": True,
-                  "WIN_GROUP": 1}
+                  "WIN_GROUP": 1, "BLK": 512}
 _TABLES = {"ed25519_decompress", "ed25519_table17_neg"}
 ENGINES = [
     ("window_loop", {"USE_PALLAS_MSM_MAJOR": False},
+     _TABLES | {"ed25519_msm_window_loop", "ed25519_fold_verify"}, True),
+    ("window_loop_blk2048", {"USE_PALLAS_MSM_MAJOR": False, "BLK": 2048},
      _TABLES | {"ed25519_msm_window_loop", "ed25519_fold_verify"}, True),
     ("grouped_g4", {"WIN_GROUP": 4},
      _TABLES | {"ed25519_msm_window_major_grouped", "ed25519_fold_verify"},
@@ -393,7 +401,8 @@ def _set_engine(flags):
     from cometbft_tpu_torch.ops import ed25519 as dev
 
     for name, value in {**DEFAULT_ENGINE, **flags}.items():
-        setattr(cuda_msm if name == "WIN_GROUP" else dev, name, value)
+        setattr(cuda_msm if name in ("WIN_GROUP", "BLK") else dev, name,
+                value)
 
 
 class _Timed:
@@ -1061,6 +1070,10 @@ def _fold_sets(state, torch):
     return out
 
 
+# K6's and K7's blocks beyond loop_blk's on the batch's 10,240- and
+# 8,192-lane sides: 8 and 16 rows per output lane
+LOOP_WIDE_BLKS = [1024, 2048]
+
 # the sides at which K1 is compared and timed: the main path's widths
 # 128, 5120, 10240 and 8192 (K2 is, at every side)
 K1_SIDES = {("commit", "A"), ("window", "R"), ("batch", "A"), ("batch", "R")}
@@ -1155,26 +1168,31 @@ def phase_kernels(state, torch):
                     k5.append({"shape": [nwin, width], "group": g,
                                "max_abs_err": e5, "vs_k3": vs_k3,
                                "args": (tab, mg, negs, g), "phase": phase})
-                blk = cm.loop_blk(width)
-                p6 = cm.msm_window_loop(tab, mg, negs, blk)
-                e6 = _exact(p6, cm.msm_window_loop_plain(tab, mg, negs, blk))
-                sum_err = _proj_err(torch, fe, dev._tree_reduce(p6, 1),
-                                    dev._tree_reduce(part, 1))
-                check(e6 == 0 and sum_err == 0, f"K6 {phase}/{side} differs "
-                      f"from plain by {e6}; its sum from K3's by {sum_err}")
-                k6.append({"shape": [nwin, width], "blk": blk,
-                           "max_abs_err": e6, "args": (tab, mg, negs, blk),
-                           "phase": phase})
-                for j in (0, nwin - 1):
-                    p7 = cm.select_tree(tab, mg[j], negs[j], blk)
-                    e7 = _exact(p7, cm.select_tree_plain(tab, mg[j], negs[j],
-                                                         blk))
-                    check(e7 == 0, f"K7 {phase}/{side} row {j} differs by "
-                          f"{e7}")
-                    k7.append({"shape": [width], "row": j, "blk": blk,
-                               "max_abs_err": e7,
-                               "args": (tab, mg[j], negs[j], blk),
-                               "phase": phase})
+                blks = [cm.loop_blk(width)]
+                if phase == "batch":
+                    blks += LOOP_WIDE_BLKS
+                for blk in blks:
+                    p6 = cm.msm_window_loop(tab, mg, negs, blk)
+                    e6 = _exact(p6, cm.msm_window_loop_plain(tab, mg, negs,
+                                                             blk))
+                    sum_err = _proj_err(torch, fe, dev._tree_reduce(p6, 1),
+                                        dev._tree_reduce(part, 1))
+                    check(e6 == 0 and sum_err == 0, f"K6 {phase}/{side} blk "
+                          f"{blk} differs from plain by {e6}; its sum from "
+                          f"K3's by {sum_err}")
+                    k6.append({"shape": [nwin, width], "blk": blk,
+                               "max_abs_err": e6, "vs_k3": sum_err,
+                               "args": (tab, mg, negs, blk), "phase": phase})
+                    for j in (0, nwin - 1):
+                        p7 = cm.select_tree(tab, mg[j], negs[j], blk)
+                        e7 = _exact(p7, cm.select_tree_plain(
+                            tab, mg[j], negs[j], blk))
+                        check(e7 == 0, f"K7 {phase}/{side} blk {blk} row {j} "
+                              f"differs by {e7}")
+                        k7.append({"shape": [width], "row": j, "blk": blk,
+                                   "max_abs_err": e7,
+                                   "args": (tab, mg[j], negs[j], blk),
+                                   "phase": phase})
     cases["ed25519_decompress"] = k1
     cases["ed25519_table17_neg"] = k2
     cases["ed25519_msm_window_major"] = k3

@@ -43,12 +43,11 @@ SIGNATURES = {
     },
     "ed25519_engines": {
         "ed25519_msm_window_loop": [_P, _P, _P, _I64, _I32, _I32, _I32, _I64,
-                                    _P, _P],
+                                    _P, _P, _P],
         "ed25519_select_tree": [_P, _P, _P, _I64, _I32, _I32, _I64, _P, _P],
         "ed25519_msm_window_major_grouped": [_P, _P, _P, _I64, _I32, _P, _P,
                                              _P],
         "ed25519_loop_threads": [],
-        "ed25519_loop_max_rows": [],
         "ed25519_group_warps": [],
         "ed25519_group_quads": [],
     },

@@ -9,12 +9,14 @@
 //
 // What bounds them: chains of 20-limb int32 field products; the window
 // tables are read one row per lane and window, so the bytes are small
-// next to the operations.  K5 runs on thread quads (fe25519_quad.cuh):
-// its window sums across the card, four quads per window and block,
-// then K3's Horner chains (msm_quad.cuh).  K6 and K7 run one output
-// lane per thread, every point in registers or thread-local memory.  No
-// atomics: the results equal the plain torch versions in
-// ops/cuda_msm.py limb for limb.
+// next to the operations (but see K7 where the table outgrows the L2).
+// All three run on thread quads (fe25519_quad.cuh) and split the work as
+// K3 does: window sums across the card, with no doubling in them, then K3's
+// Horner chains (msm_quad.cuh), one quad per partial, where there is more
+// than one window.  K5's sums are 32-lane blocks (msm_grouped_sums_kernel);
+// K6's and K7's are the Pallas kernels' output lanes
+// (loop_window_sums_kernel).  No atomics: the results equal the plain torch
+// versions in ops/cuda_msm.py limb for limb.
 //
 // Every launcher returns cudaGetLastError() of its launch (of each of its
 // launches); the Python wrapper raises when it is not 0.
@@ -28,91 +30,154 @@
 
 using namespace fe25519;
 
-// threads per K6 / K7 block; ops/cuda_msm.py LOOP_THREADS mirrors it
+// threads per K6 / K7 window-sum block; ops/cuda_msm.py LOOP_THREADS
+// mirrors it
 #define LOOP_THREADS 128
-// most table rows one K6 / K7 thread sums per window (blk / out lanes, so
-// blocks up to 1,024 lanes); they sit in thread-local memory.
-// ops/cuda_msm.py LOOP_MAX_ROWS mirrors it
-#define LOOP_MAX_ROWS 8
+// quads a K6 / K7 launch aims to spread its tasks over: the launcher
+// doubles the quads per task, up to min(r / 2, 8), while the launch has
+// fewer
+#define LOOP_FILL_QUADS 16384
 // warps of a K5 window-sum block, and thread quads per window sum;
 // ops/cuda_msm.py GROUP_WARPS and GROUP_QUADS mirror them
 #define GROUP_WARPS 4
 #define GROUP_QUADS 4
 
-// ------------------------------------------------------- K6 / K7 shared
+// ------------------------------------------------------------- K6 / K7
 
-// One output lane's share of one window: the rows of lanes
-// i * blk + o + k * out_l (k < r = blk / out_l) selected, then summed in
-// the Pallas kernel's pairwise halving order (_block_contrib: lane L adds
-// lane L + half while the block is wider than out_l), which on the r
-// rows of one output lane is v[k] += v[k + s] for s = r/2, ..., 1.
-// Lanes past W contribute the identity.
-__device__ __forceinline__ pt block_contrib(const int32_t* __restrict__ tab,
-                                            const int32_t* __restrict__ mags,
-                                            const uint8_t* __restrict__ negs, int64_t w,
-                                            int blk, int out_l, int64_t i, int o) {
-  const int r = blk / out_l;
-  pt v[LOOP_MAX_ROWS];
-#pragma unroll 1
-  for (int k = 0; k < r; ++k) {
-    const int64_t lane = i * blk + o + (int64_t)k * out_l;
-    v[k] = lane < w ? select_signed(tab, mags, negs, w, lane) : identity();
-  }
-#pragma unroll 1
-  for (int s = r / 2; s >= 1; s >>= 1) {
-#pragma unroll 1
-    for (int k = 0; k < s; ++k) v[k] = point_add(v[k], v[k + s]);
-  }
-  return v[0];
-}
-
-// ------------------------------------------------------------------ K6
-
-// The whole Straus window loop with per-block accumulators.  The TPU grid
-// (block i, window j), j fastest, keeps each block's accumulator in its
-// output block across the window steps; here one thread owns output lane
-// (i, o) and carries its accumulator in registers over all windows:
-// j = 0 sets it to the window's contribution, later windows run the 5
-// doublings and the add (the recurrence is linear, so the lane sum of the
-// per-block accumulators is the MSM).  Every thread's chain is
-// independent: no shared memory, no barrier.
+// Window sums of the Pallas partial layout: task (j, g), for window j and
+// output lane g = i * out_l + o of block i, is S[j][g], the sum of the r =
+// blk / out_l selected, signed rows of lanes i * blk + o + k * out_l (k <
+// r), in the plain version's pairwise order (_block_contrib: lane L adds
+// lane L + half while the block is wider than out_l), which on the task's
+// rows is v[k] = v[k] + v[k + s] for s = r/2, ..., 1.  K7 is this kernel
+// over one window; K6 is this kernel over all windows, then K3's Horner
+// chains, one per output lane: acc = S[0], acc <- straus_step(acc, S[j]),
+// the Pallas window loop's recurrence in its order.
+//
+// qt = 1, 2, 4 or 8 quads per task (a power of two <= r, chosen by the
+// launcher; tasks never straddle a warp).  Quad h < qt holds the rows k =
+// h + qt t, t < m = r / qt, and reduces them to T(h) = the sum the plain
+// order has at k = h once s falls to qt: on local index t that is the
+// same halving tree, u[t] += u[t + s'] for s' = m/2, ..., 1.  Its first
+// level is the leaves, row t + row t + m/2 for t < m/2 (add_cached
+// against the right row's cached form, whose one product, 2d T, thread q
+// computes for leaf i + q of each four in one round); the levels above are
+// walked depth first: leaf i in order is position bitrev(i), and after it,
+// for each trailing one bit l of i, v = st[l] + v (the pending left sum at
+// level l), then v waits in st[l].  The pending sums live in shared
+// memory, [level][limb][thread], each thread reading only what it wrote,
+// so the registers do not grow with r: one call site per point operation,
+// in a loop.  Then the levels s = qt/2, ..., 1 across quads: quad h < s
+// adds quad h + s by shuffles (all quads compute, those past s drop
+// theirs).  Every add of the plain order is made once, on the same two
+// operands: the kernel equals the plain version limb for limb.  m = 1
+// (r = 1, at blocks of up to 128 lanes) is a row load.  Lanes
+// past W are the identity; magnitudes outside 0..16 select row 0.  Spare
+// quads past the last task repeat it and store nothing, so full-mask
+// shuffles stay legal; a warp with no task returns at once.
 // tab: (17, 4, 20, W); mags: (nwin, W) int32; negs: (nwin, W) uint8;
-// out: (4, 20, nblk * out_l), lane i * out_l + o (block-major, as the
-// Pallas kernel's transpose leaves it).
+// sums: (nwin, 4, 20, nout), nout = nblk * out_l, block-major as the
+// Pallas kernels' transpose leaves it.  Dynamic shared memory: depth *
+// NL * LOOP_THREADS int32, depth = log2(m / 2) levels.
+// A row's 80 words lie W words apart, so a quad's select reads 80
+// scattered words, and with random digits one window's selects touch
+// nearly every 128-byte line of the table.  At W = 10,240 the table (56
+// MB) is larger than the H100's 50 MB L2, and K7 there is bound by those
+// reads (measured at every qt alike), not by its adds.
 __global__ void __launch_bounds__(LOOP_THREADS)
-msm_window_loop_kernel(const int32_t* __restrict__ tab, const int32_t* __restrict__ mags,
-                       const uint8_t* __restrict__ negs, int64_t w, int nwin, int blk,
-                       int out_l, int64_t nout, int32_t* __restrict__ out) {
-  const int64_t gid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (gid >= nout) return;
-  const int64_t i = gid / out_l;
-  const int o = (int)(gid % out_l);
-  pt acc = identity();
+loop_window_sums_kernel(const int32_t* __restrict__ tab, const int32_t* __restrict__ mags,
+                        const uint8_t* __restrict__ negs, int64_t w, int nwin, int blk,
+                        int out_l, int64_t nout, int qt, int32_t* __restrict__ sums) {
+  extern __shared__ int32_t pending[];
+  const int q = quad_q();
+  const int wq = (threadIdx.x & 31) >> 2;          // quad within its warp
+  const int h = wq & (qt - 1);
+  const int64_t quad = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 2;
+  const int64_t tasks = (int64_t)nwin * nout;
+  if ((quad - wq) / qt >= tasks) return;           // a whole spare warp
+  const int64_t mine = quad / qt;
+  const int64_t task = mine < tasks ? mine : tasks - 1;
+  const int64_t j = task / nout;
+  const int64_t g = task % nout;
+  const int32_t* mj = mags + j * w;
+  const uint8_t* nj = negs + j * w;
+  const int m = blk / out_l / qt;
+  // local row t of this quad is lane base + t * step
+  const int64_t step = (int64_t)qt * out_l;
+  const int64_t base = g / out_l * blk + g % out_l + (int64_t)h * out_l;
+  fe v;
+  if (m == 1) {
+    v = load_signed(tab, mj, nj, w, base, q);
+  } else {
+    const int leaves = m / 2;
+    const int bits = __ffs(leaves) - 1;
+    const int64_t half = (int64_t)leaves * step;   // a leaf's right row
+    fe t2d;
 #pragma unroll 1
-  for (int j = 0; j < nwin; ++j) {
-    pt c = block_contrib(tab, mags + (int64_t)j * w, negs + (int64_t)j * w, w, blk, out_l,
-                         i, o);
-    acc = j == 0 ? c : straus_step(acc, c);
+    for (int i = 0; i < leaves; ++i) {
+      if ((i & 3) == 0) {
+        const int iq = min(i + q, leaves - 1);
+        const int64_t at = base + (bits ? __brev(iq) >> (32 - bits) : 0) * step + half;
+        t2d = mul(load_signed(tab, mj, nj, w, at, 3), fe_const(D2_LIMBS));
+      }
+      const int64_t left = base + (bits ? __brev(i) >> (32 - bits) : 0) * step;
+      const fe u = load_signed(tab, mj, nj, w, left + half, q == 3 ? 2 : 0);   // X, or Z
+      const fe y = load_signed(tab, mj, nj, w, left + half, 1);
+      const fe d = qshfl(t2d, i & 3);
+      const fe cn = fsel(q == 0, sub(y, u),
+                         fsel(q == 1, add(y, u), fsel(q == 2, d, mul_word(u, 2))));
+      v = qadd_cached(load_signed(tab, mj, nj, w, left, q), cn);
+      int l = 0;
+#pragma unroll 1
+      for (; (i >> l) & 1; ++l) {
+        fe st;
+#pragma unroll
+        for (int k = 0; k < NL; ++k) st.v[k] = pending[(l * NL + k) * LOOP_THREADS + threadIdx.x];
+        v = qpoint_add(st, v);
+      }
+      if (i + 1 < leaves) {
+#pragma unroll
+        for (int k = 0; k < NL; ++k) pending[(l * NL + k) * LOOP_THREADS + threadIdx.x] = v.v[k];
+      }
+    }
   }
-  store_point(out, nout, gid, acc);
+#pragma unroll 1
+  for (int s = qt / 2; s >= 1; s >>= 1) {
+    const fe x = qpoint_add(v, qshfl_down(v, s));
+    v = fsel(h < s, x, v);
+  }
+  if (h == 0 && mine < tasks) store_fe(sums + j * 4 * NL * nout, nout, g, q, v);
 }
 
-// ------------------------------------------------------------------ K7
-
-// One window's select, negate and halving tree: output lane (i, o) of the
-// partials is block_contrib for that lane.  The caller's window scan
-// (ops/ed25519._msm_scan) launches it once per window on one stream and
-// folds the partials with torch point ops.
-// tab: (17, 4, 20, W); mag: (W,) int32; neg: (W,) uint8;
-// out: (4, 20, nblk * out_l).
-__global__ void __launch_bounds__(LOOP_THREADS)
-select_tree_kernel(const int32_t* __restrict__ tab, const int32_t* __restrict__ mag,
-                   const uint8_t* __restrict__ neg, int64_t w, int blk, int out_l,
-                   int64_t nout, int32_t* __restrict__ out) {
-  const int64_t gid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (gid >= nout) return;
-  store_point(out, nout, gid,
-              block_contrib(tab, mag, neg, w, blk, out_l, gid / out_l, (int)(gid % out_l)));
+// Launches loop_window_sums_kernel over nwin windows into sums: qt quads
+// per task, doubled from 1 while the launch has fewer than
+// LOOP_FILL_QUADS quads and each quad keeps two rows or more, and the
+// pending sums' shared memory.  One quad per task does the fewest adds;
+// more quads shorten the chain where the tasks are too few to fill the
+// card.  A quad of one row only trades its leaf for a cross-quad level
+// that costs more: timed on the H100 at every K7 shape of the engine
+// configurations, it was never faster than half as many quads.  r = blk /
+// out_l is a power of two (the wrapper checks).
+static int launch_loop_sums(const int32_t* tab, const int32_t* mags, const uint8_t* negs,
+                            int64_t w, int nwin, int blk, int out_l, int64_t nout,
+                            int32_t* sums, cudaStream_t stream) {
+  const int r = blk / out_l;
+  const int64_t tasks = (int64_t)nwin * nout;
+  int qt = 1;
+  while (qt < 8 && 2 * qt < r && tasks * qt < LOOP_FILL_QUADS) qt *= 2;
+  int depth = 0;
+  for (int x = r / qt / 2; x > 1; x >>= 1) ++depth;
+  const size_t smem = (size_t)depth * NL * LOOP_THREADS * sizeof(int32_t);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        loop_window_sums_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int64_t per_block = LOOP_THREADS / 4 / qt;   // tasks
+  loop_window_sums_kernel<<<(unsigned)((tasks + per_block - 1) / per_block), LOOP_THREADS,
+                            smem, stream>>>(tab, mags, negs, w, nwin, blk, out_l, nout, qt,
+                                            sums);
+  return (int)cudaGetLastError();
 }
 
 // ------------------------------------------------------------------ K5
@@ -205,23 +270,23 @@ msm_grouped_sums_kernel(const int32_t* __restrict__ tab, const int32_t* __restri
 
 extern "C" {
 
+// K6.  sums: (nwin, 4, 20, nout) scratch; out: (4, 20, nout).
 int ed25519_msm_window_loop(const void* tab, const void* mags, const void* negs, int64_t w,
-                            int nwin, int blk, int out_l, int64_t nout, void* out,
+                            int nwin, int blk, int out_l, int64_t nout, void* sums, void* out,
                             void* stream) {
-  int grid = (int)((nout + LOOP_THREADS - 1) / LOOP_THREADS);
-  msm_window_loop_kernel<<<grid, LOOP_THREADS, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)tab, (const int32_t*)mags, (const uint8_t*)negs, w, nwin, blk, out_l,
-      nout, (int32_t*)out);
-  return (int)cudaGetLastError();
+  const int rc = launch_loop_sums((const int32_t*)tab, (const int32_t*)mags,
+                                  (const uint8_t*)negs, w, nwin, blk, out_l, nout,
+                                  (int32_t*)sums, (cudaStream_t)stream);
+  if (rc != 0) return rc;
+  return launch_msm_horner((const int32_t*)sums, nwin, nout, (int32_t*)out,
+                           (cudaStream_t)stream);
 }
 
+// K7: one window's sums, straight into out: (4, 20, nout).
 int ed25519_select_tree(const void* tab, const void* mag, const void* neg, int64_t w,
                         int blk, int out_l, int64_t nout, void* out, void* stream) {
-  int grid = (int)((nout + LOOP_THREADS - 1) / LOOP_THREADS);
-  select_tree_kernel<<<grid, LOOP_THREADS, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)tab, (const int32_t*)mag, (const uint8_t*)neg, w, blk, out_l, nout,
-      (int32_t*)out);
-  return (int)cudaGetLastError();
+  return launch_loop_sums((const int32_t*)tab, (const int32_t*)mag, (const uint8_t*)neg, w, 1,
+                          blk, out_l, nout, (int32_t*)out, (cudaStream_t)stream);
 }
 
 // sums: (nwin, 4, 20, ceil(W / 32)) scratch; out: (4, 20, ceil(W / 32)).
@@ -241,7 +306,6 @@ int ed25519_msm_window_major_grouped(const void* tab, const void* mags, const vo
 }
 
 int ed25519_loop_threads(void) { return LOOP_THREADS; }
-int ed25519_loop_max_rows(void) { return LOOP_MAX_ROWS; }
 int ed25519_group_warps(void) { return GROUP_WARPS; }
 int ed25519_group_quads(void) { return GROUP_QUADS; }
 

@@ -1,5 +1,5 @@
-// GF(2^255 - 19) and edwards25519 point arithmetic, one element per
-// thread, for the port's hand-written Hopper kernels.
+// GF(2^255 - 19) arithmetic, one element per thread, for the port's
+// hand-written Hopper kernels.
 //
 // The representation is the JAX package's (cometbft_tpu/ops/fe.py), kept
 // on purpose so its bounds proof carries over and every intermediate
@@ -14,7 +14,8 @@
 // code multiplies instead (lo = x & MASK is x - (x >> 13) * 8192).
 //
 // Cost per element: mul is 400 multiply-adds, sqr 210 (cross terms once
-// against doubled limbs).  A point lives in 80 int32 registers.
+// against doubled limbs).  Point operations split over a thread quad are
+// in fe25519_quad.cuh.
 
 #pragma once
 
@@ -46,10 +47,6 @@ __device__ __constant__ int32_t P_CANON[NL] = {
 
 struct fe {
   int32_t v[NL];
-};
-
-struct pt {
-  fe X, Y, Z, T;
 };
 
 // ---------------------------------------------------------------- carries
@@ -201,66 +198,6 @@ __device__ __forceinline__ fe fe_small(int32_t v) {
   return r;
 }
 
-// ------------------------------------------------------------- points
-
-__device__ __forceinline__ pt identity() {
-  pt p;
-  p.X = fe_small(0);
-  p.Y = fe_small(1);
-  p.Z = fe_small(1);
-  p.T = fe_small(0);
-  return p;
-}
-
-// dbl-2008-hwcd for a=-1: 4M+4S (3M+4S without T)
-__device__ __noinline__ pt point_double(const pt& p, bool with_t) {
-  fe a = sqr(p.X);
-  fe b = sqr(p.Y);
-  fe c = mul_word(sqr(p.Z), 2);
-  fe h = add(a, b);
-  fe e = sub(h, sqr(add(p.X, p.Y)));
-  fe g = sub(a, b);
-  fe f = add(c, g);
-  pt r;
-  r.X = mul(e, f);
-  r.Y = mul(g, h);
-  r.Z = mul(f, g);
-  r.T = with_t ? mul(e, h) : fe_small(0);
-  return r;
-}
-
-// extended -> cached (Y+X, Y-X, 2d*T, 2Z), stored in a pt's X, Y, Z, T
-__device__ __forceinline__ pt to_cached(const pt& p) {
-  pt q;
-  q.X = add(p.Y, p.X);
-  q.Y = sub(p.Y, p.X);
-  q.Z = mul(p.T, fe_const(D2_LIMBS));
-  q.T = mul_word(p.Z, 2);
-  return q;
-}
-
-// add-2008-hwcd-3 with q pre-cached: 8M, complete for a=-1
-__device__ __noinline__ pt add_cached(const pt& p, const pt& q) {
-  fe a = mul(sub(p.Y, p.X), q.Y);
-  fe b = mul(add(p.Y, p.X), q.X);
-  fe c = mul(p.T, q.Z);
-  fe d = mul(p.Z, q.T);
-  fe e = sub(b, a);
-  fe f = sub(d, c);
-  fe g = add(d, c);
-  fe h = add(b, a);
-  pt r;
-  r.X = mul(e, f);
-  r.Y = mul(g, h);
-  r.Z = mul(f, g);
-  r.T = mul(e, h);
-  return r;
-}
-
-__device__ __forceinline__ pt point_add(const pt& p, const pt& q) {
-  return add_cached(p, to_cached(q));
-}
-
 // ----------------------------------------------- limbs-first tensor I/O
 // A point tensor is (4, 20, W) int32: element (coord c, limb l, lane) at
 // (c * 20 + l) * W + lane, so neighbouring threads read neighbouring words.
@@ -276,52 +213,6 @@ __device__ __forceinline__ void store_fe(int32_t* base, int64_t w, int64_t lane,
                                          const fe& x) {
 #pragma unroll
   for (int l = 0; l < NL; ++l) base[(int64_t)(coord * NL + l) * w + lane] = x.v[l];
-}
-
-__device__ __forceinline__ pt load_point(const int32_t* base, int64_t w, int64_t lane) {
-  pt p;
-  p.X = load_fe(base, w, lane, 0);
-  p.Y = load_fe(base, w, lane, 1);
-  p.Z = load_fe(base, w, lane, 2);
-  p.T = load_fe(base, w, lane, 3);
-  return p;
-}
-
-__device__ __forceinline__ void store_point(int32_t* base, int64_t w, int64_t lane, const pt& p) {
-  store_fe(base, w, lane, 0, p.X);
-  store_fe(base, w, lane, 1, p.Y);
-  store_fe(base, w, lane, 2, p.Z);
-  store_fe(base, w, lane, 3, p.T);
-}
-
-// ------------------------------------------------ signed-digit row select
-// One lane's row |d| of a negated window table (17, 4, 20, W), with X and
-// T negated (plain arithmetic negation) when the digit's sign is set.
-// mags / negs point at one window's (W,) row.  A magnitude outside 0..16
-// selects row 0, the identity, as the JAX package's 17-way select
-// cascade does.
-__device__ __forceinline__ pt select_signed(const int32_t* tab, const int32_t* mags,
-                                            const uint8_t* negs, int64_t w, int64_t lane) {
-  int m = mags[lane];
-  if (m < 0 || m > 16) m = 0;
-  pt p = load_point(tab + (int64_t)m * 4 * NL * w, w, lane);
-  if (negs[lane]) {
-#pragma unroll
-    for (int l = 0; l < NL; ++l) {
-      p.X.v[l] = -p.X.v[l];
-      p.T.v[l] = -p.T.v[l];
-    }
-  }
-  return p;
-}
-
-// acc <- 32 * acc + p: 4 doublings without T, one with T, the add (the
-// Straus step of one 5-bit window)
-__device__ __forceinline__ pt straus_step(pt acc, const pt& p) {
-#pragma unroll 1
-  for (int k = 0; k < 4; ++k) acc = point_double(acc, false);
-  acc = point_double(acc, true);
-  return point_add(acc, p);
 }
 
 }  // namespace fe25519

@@ -1,15 +1,16 @@
-// edwards25519 point operations on a thread quad, for the port's K3
-// (ed25519_kernels.cu).
+// edwards25519 point operations on a thread quad, for the port's kernels
+// K2-K7 (ed25519_kernels.cu, ed25519_engines.cu).
 //
 // The four threads 4m .. 4m+3 of a warp hold one point: thread q = lane & 3
 // holds its coordinate q as one fe (X, Y, Z, T of an extended point).  A
-// point operation of fe25519.cuh runs two rounds of four independent field
-// products; here each round computes its four products at once, one per
-// thread, with fe25519.cuh's own mul / sqr / carry, and the operands move
-// inside the quad with __shfl_sync.  Every linear step (add, sub, mul_word)
-// is the sequential formula's own, on the same operands (add_signed forms
-// add or sub per thread with the same limbs), so a quad's result
-// equals point_double / add_cached limb for limb.  A point operation costs
+// point operation (dbl-2008-hwcd, add-2008-hwcd-3: the plain versions'
+// point_double and add_cached, ops/ed25519.py) runs two rounds of four
+// independent field products; here each round computes its four products
+// at once, one per thread, with fe25519.cuh's own mul / sqr / carry, and
+// the operands move inside the quad with __shfl_sync.  Every linear step
+// (add, sub, mul_word) is the sequential formula's own, on the same
+// operands (add_signed forms add or sub per thread with the same limbs),
+// so a quad's result equals point_double / add_cached limb for limb.  A point operation costs
 // 2 products in series instead of 8, and a thread holds 20 limbs of the
 // point instead of 80.
 //

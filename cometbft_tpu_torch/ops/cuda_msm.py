@@ -40,8 +40,15 @@ K6 `msm_window_loop` replaces `pallas_msm.py::msm_window_loop`
 replaces `pallas_msm.py::select_tree` (`_select_tree_kernel`,
 pallas_call at :360).  Both keep the Pallas partial layout: blocks of
 `blk` lanes, each halved pairwise down to `_out_lanes(blk)` output
-lanes, block-major.  One thread per output lane; K6 carries the lane's
-accumulator over all windows, K7 computes one window.
+lanes, block-major.  Both are one window-sum kernel on thread quads:
+task (window, output lane) sums the lane's r = blk / out_l selected rows
+in the plain halving order, one to eight quads per task (the leaves and
+the levels above them depth first inside a quad, the last levels across
+quads by shuffles), all tasks across the card at once.  K7 runs it on
+its one window; K6 on every window into a scratch, then K3's Horner
+chains, one per output lane.  r may be any power of two, as in the JAX
+package.  Bound: operations (one point add per row and window, K6's
+Straus steps); K6's chain of (nwin - 1) Straus steps is its floor.
 
 K4 `fold_verify` replaces `pallas_msm.py::fold_verify`
 (`_make_fold_kernel`, pallas_call at :730).  One block of FOLD_THREADS
@@ -83,7 +90,6 @@ CHAIN_THREADS = 32       # threads of a K3 Horner block: csrc CHAIN_THREADS
 GROUP_LANES = 32         # lanes per K5 block: the plain tree's width
 FOLD_THREADS = 128       # K4 fold slots, a thread quad each: csrc FOLD_SLOTS
 LOOP_THREADS = 128       # threads per K6 / K7 block: csrc LOOP_THREADS
-LOOP_MAX_ROWS = 8        # most rows a K6 / K7 thread sums: csrc LOOP_MAX_ROWS
 GROUP_WARPS = 4          # warps of a K5 window-sum block: csrc GROUP_WARPS
 GROUP_QUADS = 4          # thread quads per K5 window sum: csrc GROUP_QUADS
 
@@ -163,7 +169,6 @@ _LIB_SIZES = {
                         "ed25519_chain_threads": CHAIN_THREADS,
                         "ed25519_fold_slots": FOLD_THREADS},
     "ed25519_engines": {"ed25519_loop_threads": LOOP_THREADS,
-                        "ed25519_loop_max_rows": LOOP_MAX_ROWS,
                         "ed25519_group_warps": GROUP_WARPS,
                         "ed25519_group_quads": GROUP_QUADS},
 }
@@ -379,9 +384,9 @@ def loop_geometry(w: int, blk):
         raise ValueError(f"block size {blk} must be positive")
     out_l = _out_lanes(blk)
     rows = blk // out_l
-    if blk % out_l or rows & (rows - 1) or rows > LOOP_MAX_ROWS:
+    if blk % out_l or rows & (rows - 1):
         raise ValueError(f"block size {blk}: the halving tree needs blk / "
-                         f"{out_l} to be a power of two <= {LOOP_MAX_ROWS}")
+                         f"{out_l} to be a power of two")
     return blk, out_l, -(-w // blk)
 
 
@@ -416,13 +421,16 @@ def msm_window_loop(tab, mags, negs, blk=None):
     tab, mags, negs = _require_msm(tab, mags, negs)
     w, nwin = tab.shape[-1], mags.shape[0]
     blk, out_l, nblk = loop_geometry(w, blk)
+    sums = torch.empty((nwin, 4, fe.NLIMBS, nblk * out_l), dtype=torch.int32,
+                       device=tab.device)
     out = torch.empty((4, fe.NLIMBS, nblk * out_l), dtype=torch.int32,
                       device=tab.device)
     lib = _lib("ed25519_engines")
     with torch.cuda.device(tab.device):
         rc = lib.ed25519_msm_window_loop(
             devmod.ptr(tab), devmod.ptr(mags), devmod.ptr(negs), w, nwin,
-            blk, out_l, nblk * out_l, devmod.ptr(out), devmod.stream(tab))
+            blk, out_l, nblk * out_l, devmod.ptr(sums), devmod.ptr(out),
+            devmod.stream(tab))
     devmod.check_launch(rc, "ed25519_msm_window_loop")
     msm_window_loop.launches += 1
     return out

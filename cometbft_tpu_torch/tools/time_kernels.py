@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Time the port's kernels K1 (decompress), K2 (table17_neg), K3
-(msm_window_major), K4 (fold_verify) and K5 (msm_window_major_grouped)
-of one checkout on the card, at the main path's widths, and optionally
-count the instruction mix of K1's and K2's longest loops.
+(msm_window_major), K4 (fold_verify), K5 (msm_window_major_grouped), K6
+(msm_window_loop) and K7 (select_tree) of one checkout on the card, at
+the main path's widths, and optionally count the instruction mix of K1's
+and K2's longest loops.
 
     python3 cometbft_tpu_torch/tools/time_kernels.py [--root DIR] [--sass]
 
@@ -27,11 +28,17 @@ negations); K5 the same way into
 preallocated window sums and partials, at K3's four shapes with groups
 4 and 13 (group_for's 4 / 2 and 13 / 13 on the 52- / 26-window sides),
 taking either C interface: with the group (before K5 ran on quads) or
-with the window-sum scratch.  Each time is the median over 7 runs of the
-CUDA-event time of 20 calls made back to back, divided by 20.
-Before timing, each kernel is held against its plain version: K1 and K2
-at W = 129, K4's verdict on a 10 + 10 set, K5 at 4 windows x 129 lanes,
-group 2.  --sass disassembles
+with the window-sum scratch.  K6 and K7 the same way, at K3's four
+shapes with the blocks loop_blk gives under BLK 512 and 2048 (K7 on the
+first window's digits), K6 taking either C interface: with the window-sum
+scratch or without (before K6 ran on quads); a block the checkout's
+loop_geometry refuses (more than 8 rows per output lane before K6 and
+K7 ran on quads) is recorded as "refused".  Each time is the median over
+7 runs of the CUDA-event time of 20 calls made back to back, divided by
+20.  Before timing, each kernel is held against its plain version: K1
+and K2 at W = 129, K4's verdict on a 10 + 10 set, K5 at 4 windows x 129
+lanes, group 2, K6 and K7 at 4 windows x 1,100 lanes (a ragged last
+block) with blocks of 512 and 2,048 lanes.  --sass disassembles
 the built library with cuobjdump and prints, for each of the two
 kernels, the opcode counts of its longest loop (a backward branch and
 its target).  Prints one JSON line.
@@ -50,6 +57,16 @@ from pathlib import Path
 
 WIDTHS = (128, 5120, 8192, 10240)
 K4_SHAPES = ((4, 4), (4, 10), (10, 8))     # commit, window, batch
+LOOP_BLKS = (512, 2048)                    # BLK for K6 and K7
+
+
+def _loop_refused(cm, w, blk):
+    """Whether the checkout's loop_geometry refuses blk at width w."""
+    try:
+        cm.loop_geometry(w, blk)
+    except ValueError:
+        return True
+    return False
 
 
 def _time(torch, fn, args, reps=7, inner=20):
@@ -144,14 +161,32 @@ def main() -> int:
     k5_err = int((cm.msm_window_major_grouped(tab129, m4, n4, 2)
                   - cm.msm_window_major_grouped_plain(tab129, m4, n4, 2))
                  .abs().max())
+    w1100 = words(1100)
+    tab1100 = cm.table17_neg(cd.decompress_plain(w1100)[0])
+    m6 = torch.randint(0, 17, (4, 1100), dtype=torch.int32, device="cuda",
+                       generator=gen)
+    n6 = torch.randint(0, 2, (4, 1100), device="cuda", generator=gen) != 0
+    loop_err = {}
+    for blk in LOOP_BLKS:
+        if _loop_refused(cm, 1100, blk):
+            loop_err[blk] = "refused"
+            continue
+        e6 = (cm.msm_window_loop(tab1100, m6, n6, blk)
+              - cm.msm_window_loop_plain(tab1100, m6, n6, blk)).abs().max()
+        e7 = (cm.select_tree(tab1100, m6[1], n6[1], blk)
+              - cm.select_tree_plain(tab1100, m6[1], n6[1], blk)).abs().max()
+        loop_err[blk] = int(e6) + int(e7)
     rec = {"card": card, "root": str(root), "k1_err_w129": k1_err,
            "k2_err_w129": k2_err, "k4_verdicts_equal": k4_ok,
-           "k5_err_4x129": k5_err, "k1_ms": {}, "k2_ms": {}, "k3_ms": {},
-           "k4_ms": {}, "k5_ms": {}}
+           "k5_err_4x129": k5_err, "k6_k7_err_4x1100": loop_err,
+           "k1_ms": {}, "k2_ms": {}, "k3_ms": {}, "k4_ms": {}, "k5_ms": {},
+           "k6_ms": {}, "k7_ms": {}}
     lib = _build.load("ed25519_kernels")
     eng = _build.load("ed25519_engines")
     k5_group_arg = (_build.SIGNATURES["ed25519_engines"]
                     ["ed25519_msm_window_major_grouped"][5] is ctypes.c_int)
+    k6_sums_arg = len(_build.SIGNATURES["ed25519_engines"]
+                      ["ed25519_msm_window_loop"]) == 11
     stream = devmod.stream(w129)
     verdict = torch.empty((1,), dtype=torch.int32, device="cuda")
     for na, nr in K4_SHAPES:
@@ -188,6 +223,31 @@ def main() -> int:
                 torch, eng.ed25519_msm_window_major_grouped,
                 (devmod.ptr(tab), devmod.ptr(mags), devmod.ptr(negs8), w,
                  nwin, *middle, devmod.ptr(out), stream))
+        mag0, neg0 = mags[0].contiguous(), negs8[0].contiguous()
+        saved_blk = cm.BLK
+        for requested in LOOP_BLKS:
+            cm.BLK = requested
+            blk = cm.loop_blk(w)
+            key = f"{nwin}x{w} BLK{requested} blk{blk}"
+            if _loop_refused(cm, w, blk):
+                rec["k6_ms"][key] = rec["k7_ms"][key] = "refused"
+                continue
+            _, out_l, nblk = cm.loop_geometry(w, blk)
+            nout = nblk * out_l
+            lsums = torch.empty((nwin, 4, 20, nout), dtype=torch.int32,
+                                device="cuda")
+            lout = torch.empty((4, 20, nout), dtype=torch.int32,
+                               device="cuda")
+            middle = (devmod.ptr(lsums),) if k6_sums_arg else ()
+            rec["k6_ms"][key] = _time(
+                torch, eng.ed25519_msm_window_loop,
+                (devmod.ptr(tab), devmod.ptr(mags), devmod.ptr(negs8), w,
+                 nwin, blk, out_l, nout, *middle, devmod.ptr(lout), stream))
+            rec["k7_ms"][key] = _time(
+                torch, eng.ed25519_select_tree,
+                (devmod.ptr(tab), devmod.ptr(mag0), devmod.ptr(neg0), w, blk,
+                 out_l, nout, devmod.ptr(lout), stream))
+        cm.BLK = saved_blk
     if args.sass:
         so = _build._target("ed25519_kernels")
         tool = Path(_build.nvcc()).parent / "cuobjdump"
@@ -196,7 +256,9 @@ def main() -> int:
         rec["loop_mix"] = {k: _loop_mix(sass, k) for k in
                            ("decompress_kernel", "table17_neg_kernel")}
     print(json.dumps(rec), flush=True)
-    return 0 if k1_err == 0 and k2_err == 0 and k4_ok and k5_err == 0 else 1
+    loop_ok = all(e in (0, "refused") for e in loop_err.values())
+    return 0 if (k1_err == 0 and k2_err == 0 and k4_ok and k5_err == 0
+                 and loop_ok) else 1
 
 
 if __name__ == "__main__":
