@@ -37,7 +37,22 @@ result):
              cached-A call made twice, the second hitting its device's
              entry; K8's gathered partials on the window's R side at
              n = 4 against the same function over four "cpu" shards;
-  6. engines the same entry points under each MSM engine configuration
+  6. hash    the device-hash path (SHA-512 on K9, hash-to-scalar in torch
+             ops, then K1-K4): the commit's, the window's (clean and with
+             the bad signature) and the batch's (clean and hostile)
+             signatures through crypto/batch._device_verify_hash and
+             rlc_verify_hash, every verdict the host-hash route's and
+             ed25519_ref.verify's, the bad signature localized by
+             verify_hash_kernel, each RLC call launching one K9 beside the
+             K1-K4 of the host-hash program at the same widths and each
+             localization one K9 and one K1; a message over
+             DEVICE_HASH_MAX_BLOCKS raising ValueError; a 10,000-validator
+             ValidatorSet.hash() equal to the host Merkle root with one
+             K10 launch, and sum_sha256_many of 511 messages with none;
+             the host packing time of pack_rlc_device_hash beside
+             parse_and_hash + pack_rlc, and each route's time (printed,
+             nothing claimed);
+  7. engines the same entry points under each MSM engine configuration
              (the JAX package's flags, set on the port's modules):
              window_loop (K6), window_loop_blk2048 (K6 under
              COMETBFT_TPU_PALLAS_BLK=2048: 1, 8 and 16 rows per output
@@ -49,7 +64,7 @@ result):
              window_loop configurations and grouped_g4 the clean 8,192
              batch, each verdict the default engine's; each must launch
              exactly its configuration's kernels;
-  7. kernels each kernel vs its plain version on the card, at the shapes
+  8. kernels each kernel vs its plain version on the card, at the shapes
              phases 2-4 gave it (exact integer equality; K1 at the four
              main-path widths and on hostile encodings, K1 and K2 also at
              the ragged widths 1, 7 and 129; K3 also at the commit's two
@@ -60,16 +75,23 @@ result):
              on digits with magnitudes outside 0..16; K4's verdict also
              on partial sets made on the card from the seed: sums of
              identity at 2 to 4,608 partials, each also with one limb
-             changed, and two with an 8-torsion component;
-  8. timing  each kernel's median time over runs of 10 launches back to
+             changed, and two with an 8-torsion component; K9 at the
+             hash phase's four widths (128, 5,120, 8,192 and the 16,384
+             of the window's localization) and K9 / K10 at their padding
+             boundaries, with rows whose block count is 0, word for word
+             and against hashlib; K10 at the 10,000 validator leaves;
+  9. timing  each kernel's median time over runs of 10 launches back to
              back and each plain version's median time per call (CUDA
              events), with the bound the card could reach for the same
-             work.
+             work; for K9 and K10 also their time launched through the C
+             function into preallocated outputs (raw_ms, no wrapper) and
+             hashlib's time on the host for the same messages.
 The launch counters are reset before phase 2 and read after phase 4
 (the default engine: every one of K1-K4 must launch there, none of
 K5-K8), reset before and read after phase 5's path (its comparisons
 with the plain version excluded), and reset before and read after each
-configuration of phase 6.
+configuration of phase 7, and reset before and read after phase 6's path
+(its host-hash comparisons excluded).
 Keys and messages come from a fixed seed; the RLC weights are drawn from
 `secrets`, as they are in use.
 """
@@ -112,11 +134,15 @@ KERNELS = {
                                 "cometbft_tpu/ops/pallas_msm.py:317"),
     "ed25519_select_tree": ("ed25519_engines.cu",
                             "cometbft_tpu/ops/pallas_msm.py:360"),
+    "sha512_blocks": ("sha2_kernels.cu", "cometbft_tpu/ops/sha2.py:210"),
+    "sha256_blocks": ("sha2_kernels.cu", "cometbft_tpu/ops/sha2.py:78"),
 }
 DEFAULT_KERNELS = {"ed25519_decompress", "ed25519_table17_neg",
                    "ed25519_msm_window_major", "ed25519_fold_verify"}
 # K8 runs K1-K4 per shard; its two entry points count their own calls
 K8 = ("ed25519_sharded_msm", "ed25519_rlc_verify_sharded")
+HASH_KERNELS = {"sha512_blocks", "sha256_blocks"}
+N_VALSET = 10_000              # ValidatorSet.hash(): upstream's largest sets
 MESH_SHARDS = (1, 2, 4)
 NVLINK_BYTES_PER_S = 450e9     # one direction, H100 SXM data sheet
 
@@ -153,6 +179,19 @@ DBL_T, DBL = 4 * MUL + 4 * SQR, 3 * MUL + 4 * SQR
 ADD = MUL + 8 * MUL                  # to_cached + add_cached
 DECOMPRESS = 255 * SQR + 19 * MUL    # y^2, v^2, v3^2, 251 in pow_p58, r^2
 TABLE = MUL + 15 * 8 * MUL
+# The fewest 32-bit operations a block of K9 and K10 needs on sm_90:
+# any 3-input logic function (ch, maj, a 3-way xor) is one LOP3 per
+# 32-bit half, a 64-bit rotation two funnel shifts, a 64-bit shift two
+# shifts, and a sum of three 64-bit terms one IADD3 pair (two carry
+# predicates), so a 64-bit add of k terms is 2 * ceil((k - 1) / 2).
+# SHA-512 round 28: Sigma1 and Sigma0 8 each (6 shifts + 2 LOP3),
+# ch 2, maj 2, t1 = h + Sigma1 + ch + K + W 4, a = t1 + Sigma0 + maj 2,
+# e = d + t1 2.  Schedule step 20: sigma0 and sigma1 8 each (4 shifts +
+# 2 shifts + 2 LOP3), W = sigma1 + W7 + sigma0 + W16 4.  Final adds 16.
+# SHA-256 is the same on one 32-bit word: round 14 (4 + 4 + 1 + 1 + 2 +
+# 1 + 1), schedule step 10 (4 + 4 + 2), final adds 8.
+SHA512_BLOCK_OPS = 80 * 28 + 64 * 20 + 8 * 2        # 3,536
+SHA256_BLOCK_OPS = 64 * 14 + 48 * 10 + 8            # 1,384
 
 
 # -- host fixtures (pure Python, several processes) --------------------------
@@ -229,8 +268,8 @@ def main() -> int:
     torch.cuda.set_device(0)
     state = {}
     phases = [phase_build, phase_fixtures, phase_commit, phase_window,
-              phase_batch, phase_mesh, phase_engines, phase_kernels,
-              phase_timing]
+              phase_batch, phase_mesh, phase_hash, phase_engines,
+              phase_kernels, phase_timing]
     ctx = mp.get_context("spawn")
     with ctx.Pool(os.cpu_count() or 1) as pool:
         state["pool"] = pool
@@ -374,7 +413,10 @@ def phase_fixtures(state, torch):
 
 def _kernels():
     from cometbft_tpu_torch.ops import cuda_decompress, cuda_msm, msm_shard
-    return {"ed25519_sharded_msm": msm_shard.sharded_msm,
+    from cometbft_tpu_torch.ops import sha2
+    return {"sha512_blocks": sha2.sha512_blocks,
+            "sha256_blocks": sha2.sha256_blocks,
+            "ed25519_sharded_msm": msm_shard.sharded_msm,
             "ed25519_rlc_verify_sharded": msm_shard.rlc_verify_sharded,
             "ed25519_decompress": cuda_decompress.decompress,
             "ed25519_table17_neg": cuda_msm.table17_neg,
@@ -630,6 +672,7 @@ def phase_batch(state, torch):
     check(not ok and [i for i, v in enumerate(want) if not v]
           == [i1, i2, i3], "unexpected reject set")
     check(want[i4], "identity-key signature rejected")
+    state["oracle"] = dict(zip(zip(pubs, msgs, sigs), want))
     state["main_s"] = time.perf_counter() - state["main_t0"]
     state["main_launches"] = _counts()
     launched = {k for k, v in state["main_launches"].items() if v}
@@ -925,7 +968,296 @@ def phase_mesh(state, torch):
             "k8_vs_plain": vs_plain, "launches": state["mesh_launches"]}
 
 
-# -- phase 6: the engine configurations -------------------------------------------
+# -- phase 6: the device-hash path -------------------------------------------
+
+def _oracle(state, items):
+    """ed25519_ref.verify of each (pubkey, msg, sig), in the pool, each
+    triple computed once per run."""
+    known = state.setdefault("oracle", {})
+    todo = sorted({t for t in zip(*items) if t not in known})
+    known.update(zip(todo, _pool_map(state["pool"], _verify, todo)))
+    return [known[t] for t in zip(*items)]
+
+
+def _hash_cases(state):
+    """{label: ((pubkeys, msgs, sigs), the bad index or None)}: the
+    commit's and the window's signatures as DeferredSigBatch collects
+    them (clean, and the window with its bad signature), the batch clean
+    and with phase 4's hostile entries."""
+    commit = _window_items(state, [(5, state["commits"][5])])
+    window = _window_items(state, [(h, state["commits"][h])
+                                   for h in state["heights"]])
+    bad = _window_items(state, state["window_bad"][0])
+    bad_i = next(i for i, (a, b) in enumerate(zip(window[2], bad[2]))
+                 if a != b)
+    return {"commit": (commit, None), "window": (window, None),
+            "window_bad": (bad, bad_i),
+            "batch": (tuple(list(x) for x in state["batch"]), None),
+            "batch_hostile": (state["batch_items"], None)}
+
+
+def _rlc_launches(torch, packed):
+    """The kernels one host-hash whole RLC program launches on `packed`
+    (no A-table cache), and its verdict."""
+    from cometbft_tpu_torch.crypto import ed25519 as ed
+
+    before = _counts()
+    ok = ed.rlc_verify(packed, use_cache=False, device=DEVICE)
+    return _launched(before, _counts()), ok
+
+
+def _tool(name):
+    """The module of cometbft_tpu_torch/tools/<name>.py (a script
+    directory, not a package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"_tool_{name}", ROOT / "cometbft_tpu_torch" / "tools" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _program_syncs(torch, packed, packed_h):
+    """Host waits inside the device-hash RLC program and the host-hash
+    one, each on its batch's inputs copied to the card beforehand: a
+    program that makes none can be launched on every chunk of a split
+    before any verdict is read.  The control, one copy of a numpy array
+    to the card, must count 1."""
+    import numpy as np
+
+    from cometbft_tpu_torch import convert
+    from cometbft_tpu_torch.ops import ed25519 as dev
+
+    count_waits = _tool("host_syncs").count_waits
+    card = torch.device(DEVICE)
+    n_copy, _ = count_waits(torch, lambda: torch.as_tensor(
+        np.arange(4), device=card))
+    n_hash, ok = count_waits(torch, dev.rlc_verify_hash_kernel,
+                             *convert.rlc_hash_from_numpy(packed, card))
+    n_host, ok_h = count_waits(torch, dev.rlc_verify_kernel,
+                               *convert.packed_from_numpy(packed_h, card))
+    return {"device_hash_program": n_hash, "host_hash_program": n_host,
+            "control_one_copy": n_copy, "verdicts": [bool(ok), bool(ok_h)]}
+
+
+def _merge(*counts):
+    out = {}
+    for c in counts:
+        for k, v in c.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def _hash_breakdown(torch, packed):
+    """Where one device-hash RLC program's time goes, on `packed`: host
+    wall with a sync after each stage (single samples) of K9 alone, h =
+    SHA512 mod L, the whole hash-to-scalar (h, z*h, the per-key sums,
+    the recode) and the whole program; and the torch operators the
+    hash-to-scalar dispatches (each one launch or more on the card)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from cometbft_tpu_torch import convert
+    from cometbft_tpu_torch.ops import ed25519 as dev
+    from cometbft_tpu_torch.ops import sha2
+
+    class _Ops(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            _Ops.n += 1
+            return func(*args, **(kwargs or {}))
+
+    (a, r, base, z, gids, bh, bl, nb, r_mag, r_neg) = \
+        convert.rlc_hash_from_numpy(packed, DEVICE)
+
+    def to_scalars():
+        h = dev._h_scalars(bh, bl, nb)
+        seg = dev._segment_sum_mod_l(dev._zh_mod_l(z, h), gids, a.shape[-1])
+        return dev._recode_w5_device(dev._add_mod_l(base, seg))
+
+    def ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    out = {"k9_ms": ms(lambda: sha2.sha512_blocks(bh, bl, nb)),
+           "h_scalars_ms": ms(lambda: dev._h_scalars(bh, bl, nb)),
+           "hash_to_scalar_ms": ms(to_scalars),
+           "program_ms": ms(lambda: bool(dev.rlc_verify_hash_kernel(
+               a, r, base, z, gids, bh, bl, nb, r_mag, r_neg)))}
+    with _Ops():
+        to_scalars()
+    out["hash_to_scalar_torch_ops"] = _Ops.n
+    return out
+
+
+def phase_hash(state, torch):
+    """The device-hash path, with the counts set to 0 just before it and
+    read just after: each case through parse_batch and
+    _device_verify_hash on the card (seconds: both), its launches exact;
+    the oversized message; ValidatorSet.hash() of N_VALSET validators and
+    sum_sha256_many below its threshold.  A warm-up call on the commit
+    comes first, outside the count: the first call pays torch's loading
+    of the CUDA modules of the hash-to-scalar ops.  Then, outside the
+    count, the host-hash route on the same cases (parse_and_hash and
+    _device_verify, the A-table cache off so that both routes run the
+    whole program), its verdicts, the host packing time of each
+    route's packer, and, on the window and the batch, the times each
+    route's RLC program makes the host wait for the card (none allowed
+    for the device-hash one)."""
+    import numpy as np
+
+    from cometbft_tpu_torch.crypto import batch as cb
+    from cometbft_tpu_torch.crypto import ed25519 as ed
+    from cometbft_tpu_torch.crypto import hash as chash
+    from cometbft_tpu_torch.crypto import merkle
+    from cometbft_tpu_torch.ops import ed25519 as dev
+    from cometbft_tpu_torch.types.validator_set import Validator, ValidatorSet
+
+    cases = _hash_cases(state)
+    rng = np.random.default_rng(SEED)
+    valset = ValidatorSet([Validator(ed.PubKey(rng.bytes(32)),
+                                     int(rng.integers(1, 1 << 40)))
+                           for _ in range(N_VALSET)])
+    leaves = [v.bytes() for v in valset.validators]
+    rows, verdict_of, k9_inputs = {}, {}, []
+    pks, msgs, sigs = cases["commit"][0]
+    t0 = time.perf_counter()
+    cb._device_verify_hash(pks, msgs, ed.parse_batch(pks, sigs),
+                           device=DEVICE)
+    warm_s = time.perf_counter() - t0
+    _zero_counts()                        # the device-hash path starts here
+    t_path = time.perf_counter()
+    for label, ((pks, msgs, sigs), bad_i) in cases.items():
+        n = len(pks)
+        before = _counts()
+        with _Timed(ed, "rlc_verify_hash", torch) as rlc, \
+                _Timed(dev, "verify_hash_kernel", torch) as persig:
+            t0 = time.perf_counter()
+            parsed = ed.parse_batch(pks, sigs)
+            ok, verdicts = cb._device_verify_hash(pks, msgs, parsed,
+                                                  device=DEVICE)
+            seconds = time.perf_counter() - t0
+        rows[label] = {"signatures": n, "ok": ok, "seconds": seconds,
+                       "rlc_verify_hash_seconds": rlc.seconds,
+                       "rlc_calls": rlc.calls,
+                       "localize_seconds": persig.seconds,
+                       "localize_calls": persig.calls,
+                       "launches": _launched(before, _counts()),
+                       "rejected": [i for i, v in enumerate(verdicts)
+                                    if not v]}
+        verdict_of[label] = (ok, verdicts)
+        structural = any(p is None for p in parsed)
+        check(rlc.calls == (0 if structural else 1) and
+              persig.calls == (0 if ok else 1),
+              f"hash {label}: {rlc.calls} RLC calls, {persig.calls} "
+              "localizations")
+        if bad_i is not None:
+            check(rows[label]["rejected"] == [bad_i], f"hash {label}: "
+                  f"rejected {rows[label]['rejected'][:8]}, not [{bad_i}]")
+    oversized = cases["commit"][0]
+    long = [b"\x00" * (128 * ed.DEVICE_HASH_MAX_BLOCKS)] + oversized[1][1:]
+    before = _counts()
+    try:
+        cb._device_verify_hash(oversized[0], long,
+                               ed.parse_batch(oversized[0], oversized[2]),
+                               device=DEVICE)
+        raise PhaseError("an oversized message was accepted")
+    except ValueError as e:
+        check(str(e) == "message exceeds max_blocks", f"wrong error {e}")
+    check(not _launched(before, _counts()), "the oversized message launched")
+    before = _counts()
+    t0 = time.perf_counter()
+    root = valset.hash(device=DEVICE)
+    valset_s = time.perf_counter() - t0
+    valset_launches = _launched(before, _counts())
+    before = _counts()
+    below = chash.sum_sha256_many(leaves[:chash.DEVICE_HASH_THRESHOLD - 1],
+                                  device=DEVICE)
+    below_launches = _launched(before, _counts())
+    path_s = time.perf_counter() - t_path
+    state["hash_launches"] = _counts()
+
+    # outside the count: the host-hash route, the oracle, the packers
+    host_root = merkle.hash_from_byte_slices(leaves)
+    check(root == host_root, "ValidatorSet.hash() differs from the host "
+          "Merkle root")
+    check(valset_launches == {"sha256_blocks": 1},
+          f"ValidatorSet.hash() launched {valset_launches}")
+    check(not below_launches and below == [hashlib.sha256(x).digest()
+                                           for x in leaves[:len(below)]],
+          f"sum_sha256_many below the threshold launched {below_launches}")
+    for label, ((pks, msgs, sigs), _) in cases.items():
+        rec, (ok, verdicts) = rows[label], verdict_of[label]
+        n = len(pks)
+        ram = [s[:32] + p + m for p, m, s in zip(pks, msgs, sigs)]
+        t0 = time.perf_counter()
+        parsed_h = ed.parse_and_hash(pks, msgs, sigs)
+        packed_h = ed.pack_rlc(pks, msgs, sigs, parsed=parsed_h)
+        rec["host_hash_pack_seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        parsed = ed.parse_batch(pks, sigs)
+        packed = ed.pack_rlc_device_hash(pks, msgs, [b""] * n, parsed=parsed)
+        rec["device_hash_pack_seconds"] = time.perf_counter() - t0
+        use_a_cache, ed.USE_A_CACHE = ed.USE_A_CACHE, False
+        try:
+            t0 = time.perf_counter()
+            ok_h, verdicts_h = cb._device_verify(
+                pks, ed.parse_and_hash(pks, msgs, sigs), torch.device(DEVICE))
+            rec["host_hash_route_seconds"] = time.perf_counter() - t0
+        finally:
+            ed.USE_A_CACHE = use_a_cache
+        want = _oracle(state, (pks, msgs, sigs))
+        differ = [i for i in range(n)
+                  if not verdicts[i] == verdicts_h[i] == want[i]]
+        check(not differ and ok == ok_h == all(want), f"hash {label}: "
+              "verdicts differ from the host-hash route's or "
+              f"ed25519_ref.verify's at {differ[:8]}")
+        need = {}
+        if packed is not None:
+            host_launches, host_ok = _rlc_launches(torch, packed_h)
+            dev_ok = ed.rlc_verify_hash(packed, device=DEVICE)
+            check(dev_ok == host_ok, f"hash {label}: rlc_verify_hash "
+                  f"{dev_ok}, host-hash program {host_ok}")
+            need = _merge(host_launches, {"sha512_blocks": 1})
+            rec["host_hash_rlc_launches"] = host_launches
+            if DEVICE == "cuda" and label in ("window", "batch"):
+                rec["breakdown"] = _hash_breakdown(torch, packed)
+                rec["host_syncs"] = syncs = _program_syncs(torch, packed,
+                                                           packed_h)
+                check(syncs["device_hash_program"] == 0
+                      and syncs["control_one_copy"] == 1
+                      and syncs["verdicts"] == [host_ok, host_ok],
+                      f"hash {label}: the device-hash program made the "
+                      f"host wait for the card: {syncs}")
+            if label != "window_bad":    # the window's width once
+                k9_inputs.append((label, packed[5:8], ram))
+        if not ok:
+            need = _merge(need, {"sha512_blocks": 1,
+                                 "ed25519_decompress": 1})
+        check(rec["launches"] == need, f"hash {label} launched "
+              f"{rec['launches']}, not {need}")
+        if label == "window_bad":
+            a, r, s, bh, bl, nb, valid = ed.pack_batch_device_hash(
+                pks, msgs, [b""] * n, dev.bucket_size(n), parsed=parsed)
+            k9_inputs.append(("window localization", (bh, bl, nb), ram))
+    for name, fn in _kernels().items():  # comparison launches do not count
+        fn.launches = state["hash_launches"][name]
+    state["k9_inputs"] = k9_inputs
+    state["valset_leaves"] = leaves
+    return {"warm_up_seconds": warm_s, "path_seconds": path_s, "cases": rows,
+            "valset": {"validators": N_VALSET, "seconds": valset_s,
+                       "launches": valset_launches},
+            "below_threshold": {"messages": len(below),
+                                "launches": below_launches},
+            "launches": state["hash_launches"]}
+
+
+# -- phase 7: the engine configurations --------------------------------------
 
 def phase_engines(state, torch):
     """Each configuration drives the commit, the window and (where
@@ -974,7 +1306,7 @@ def phase_engines(state, torch):
     return {"configurations": rows}
 
 
-# -- phase 7: kernel vs plain --------------------------------------------------
+# -- phase 8: kernel vs plain ------------------------------------------------
 
 def _hostile_words(state, torch):
     """K1 input at W = 8192: the phase-4 public keys (two of them
@@ -1225,6 +1557,7 @@ def phase_kernels(state, torch):
     for label, want, pa, pr in _fold_sets(state, torch):
         k4_case(label, want, pa, pr)
     cases["ed25519_fold_verify"] = k4
+    cases["sha512_blocks"], cases["sha256_blocks"] = _sha_cases(state, torch)
     for name, fn in _kernels().items():  # comparison launches do not count
         fn.launches = saved[name]
     state["cases"] = cases
@@ -1235,7 +1568,78 @@ def phase_kernels(state, torch):
                              for c in v] for k, v in cases.items()}}
 
 
-# -- phase 8: timing -------------------------------------------------------------
+# R||A||M lengths at SHA-512's padding boundaries and message lengths at
+# SHA-256's, 16 messages each, with 16 rows of block count 0
+SHA512_BOUNDARIES = (111, 112, 127, 128, 239, 240)
+SHA256_BOUNDARIES = (55, 56, 63, 64)
+
+
+def _sha_case(torch, name, label, msgs, arrays):
+    """Kernel K9 or K10 against its plain version word for word, and
+    against hashlib: rows 0..len(msgs)-1 hash msgs, the rows past them
+    and every row of block count 0 give the initial state."""
+    import numpy as np
+
+    from cometbft_tpu_torch import convert
+    from cometbft_tpu_torch.ops import sha2
+
+    *blocks, nb = arrays
+    args = tuple(convert.words_from_numpy(b, DEVICE) for b in blocks) + \
+        (torch.from_numpy(np.ascontiguousarray(nb)).to(DEVICE),)
+    fn = getattr(sha2, name)
+    got, plain = fn(*args), getattr(sha2, name + "_plain")(*args)
+    if name == "sha256_blocks":
+        got, plain = (got,), (plain,)
+        digest, init = sha2.digest256_to_bytes, [sha2.H256]
+        lib = hashlib.sha256
+    else:
+        digest, lib = sha2.digest512_to_bytes, hashlib.sha512
+        init = [[v >> 32 for v in sha2.H512],
+                [v & sha2.M32 for v in sha2.H512]]
+    err = max(int((g.long() - p.long()).abs().max()) for g, p in
+              zip(got, plain))
+    rows = [x.cpu().numpy() for x in got]
+    want_init = digest(*init)
+    bad = [i for i in range(len(nb)) if digest(*(r[i] for r in rows)) !=
+           (lib(msgs[i]).digest() if i < len(msgs) and nb[i] else want_init)]
+    check(err == 0 and not bad, f"{name} {label} {tuple(blocks[0].shape)}: "
+          f"differs from plain by {err}, from hashlib at {bad[:8]}")
+    return {"shape": [int(d) for d in blocks[0].shape], "max_abs_err": err,
+            "args": args, "phase": label, "msgs": msgs,
+            "zero_rows": int((nb == 0).sum())}
+
+
+def _sha_cases(state, torch):
+    """K9 at the hash phase's widths and at the padding boundaries, K10
+    at the validator leaves and at its padding boundaries."""
+    import random
+
+    import numpy as np
+
+    from cometbft_tpu_torch.ops import sha2
+
+    k9 = []
+    for label, arrays, msgs in state["k9_inputs"]:
+        k9.append(_sha_case(torch, "sha512_blocks", label, msgs, arrays))
+    rng = random.Random(SEED)
+    out = {}
+    for name, sizes, bucket in (("sha512_blocks", SHA512_BOUNDARIES, 3),
+                                ("sha256_blocks", SHA256_BOUNDARIES, 2)):
+        msgs = [rng.randbytes(s) for s in sizes for _ in range(16)]
+        pad = sha2.pad_sha512 if name == "sha512_blocks" else sha2.pad_sha256
+        arrays = list(pad(msgs + [rng.randbytes(20)] * 16, bucket))
+        arrays[-1] = arrays[-1].copy()
+        arrays[-1][len(msgs):] = 0
+        arrays[-1][::9] = 0
+        out[name] = _sha_case(torch, name, "padding boundaries", msgs, arrays)
+    k9.append(out["sha512_blocks"])
+    leaves = [b"\x00" + x for x in state["valset_leaves"]]
+    k10 = [_sha_case(torch, "sha256_blocks", "validator leaves", leaves,
+                     sha2.pad_sha256(leaves)), out["sha256_blocks"]]
+    return k9, k10
+
+
+# -- phase 9: timing ---------------------------------------------------------
 
 def _time(torch, fn, args, reps, inner=1):
     """Median over reps of the CUDA-event time of `inner` calls made back
@@ -1295,9 +1699,72 @@ def _work(name, case):
         w, blk = case["args"][1].shape[-1], case["args"][3]
         blk, out_l, nblk = cm.loop_geometry(w, blk)
         return nblk * (blk - out_l) * ADD, w * (320 + 5) + nblk * out_l * 320
+    if name in HASH_KERNELS:
+        blocks, nb = case["args"][0], case["args"][-1]
+        used = int(nb.clamp(0, blocks.shape[1]).sum())
+        n = blocks.shape[0]
+        if name == "sha512_blocks":
+            return used * SHA512_BLOCK_OPS, used * 128 + n * (4 + 64)
+        return used * SHA256_BLOCK_OPS, used * 64 + n * (4 + 32)
     pa, pr = case["args"]
     n = pa.shape[-1] + pr.shape[-1]
     return (n - 1) * ADD + 3 * DBL, n * 320 + 4
+
+
+def _raw_sha(torch, name, args):
+    """K9 or K10 launched through its C function into preallocated
+    outputs: the kernel's time without the wrapper's host work."""
+    from cometbft_tpu_torch.ops import _build
+    from cometbft_tpu_torch.ops import device as devmod
+
+    lib = _build.load("sha2_kernels")
+    n, nblk = (int(d) for d in args[0].shape[:2])
+    outs = [torch.empty((n, 8), dtype=torch.int32, device=args[0].device)
+            for _ in range(len(args) - 1)]
+    ptrs = [devmod.ptr(t) for t in args]
+    optrs = [devmod.ptr(t) for t in outs]
+    stream = devmod.stream(args[0])
+    fn = getattr(lib, name)
+
+    def launch():
+        devmod.check_launch(fn(*ptrs, n, nblk, *optrs, stream), name)
+        return outs
+    return launch
+
+
+def _hashlib_ms(name, msgs):
+    """hashlib's time for the same messages on the host, the median of
+    three passes (what the kernel replaces; no PyTorch call computes
+    SHA-2)."""
+    fn = hashlib.sha512 if name == "sha512_blocks" else hashlib.sha256
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for m in msgs:
+            fn(m).digest()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[1]
+
+
+def _sass_block_loops():
+    """{kernel name: instruction count and opcode mix of its per-block
+    loop} for K9 and K10 as nvcc compiled them (cuobjdump of the built
+    library; the rounds are unrolled, so the longest loop is one block),
+    to set beside SHA512_BLOCK_OPS and SHA256_BLOCK_OPS.  Information
+    only: a missing cuobjdump gives {"error": ...}."""
+    from cometbft_tpu_torch.ops import _build
+
+    try:
+        tk = _tool("time_kernels")
+        tool = Path(_build.nvcc()).parent / "cuobjdump"
+        sass = subprocess.run([str(tool), "-sass",
+                               str(_build._target("sha2_kernels"))],
+                              capture_output=True, text=True,
+                              timeout=120).stdout
+        return {name: tk._loop_mix(sass, name.replace("_blocks", "_kernel"))
+                for name in HASH_KERNELS}
+    except Exception as e:                    # noqa: BLE001
+        return {"error": f"{type(e).__name__}: {e}"}
 
 
 def _peak(state):
@@ -1315,8 +1782,11 @@ def _bound(state, ops, nbytes, bytes_per_s=HBM_BYTES_PER_S):
 def phase_timing(state, torch):
     from cometbft_tpu_torch.ops import cuda_decompress as cd
     from cometbft_tpu_torch.ops import cuda_msm as cm
+    from cometbft_tpu_torch.ops import sha2
 
-    plain = {"ed25519_decompress": cd.decompress_plain,
+    plain = {"sha512_blocks": sha2.sha512_blocks_plain,
+             "sha256_blocks": sha2.sha256_blocks_plain,
+             "ed25519_decompress": cd.decompress_plain,
              "ed25519_table17_neg": cm.table17_neg_plain,
              "ed25519_msm_window_major": cm.msm_window_major_plain,
              "ed25519_fold_verify": cm.fold_verify_plain,
@@ -1325,6 +1795,7 @@ def phase_timing(state, torch):
              "ed25519_msm_window_loop": cm.msm_window_loop_plain,
              "ed25519_select_tree": cm.select_tree_plain}
     saved = _counts()
+    sass = _sass_block_loops()
     rows = []
     for name in KERNELS:
         fn = _kernels()[name]
@@ -1334,22 +1805,34 @@ def phase_timing(state, torch):
             plain_ms = _time(torch, plain[name], case["args"], 3)
             ops, nbytes = _work(name, case)
             bound_ms, bound_by = _bound(state, ops, nbytes)
+            extra = {k: case[k] for k in ("group", "blk", "row", "zero_rows")
+                     if k in case}
+            if name in HASH_KERNELS:
+                extra["raw_ms"] = _time(torch, _raw_sha(torch, name,
+                                                        case["args"]),
+                                        (), 7, inner=20)
+                extra["host_hashlib_ms"] = _hashlib_ms(name, case["msgs"])
             shapes.append({"shape": case["shape"],
                            "phase": case.get("phase", "batch"), "ms": ms,
                            "plain_ms": plain_ms, "bound_ms": bound_ms,
-                           "bound_by": bound_by, "int32_madds": ops,
+                           "bound_by": bound_by,
+                           ("int32_ops" if name in HASH_KERNELS
+                            else "int32_madds"): ops,
                            "bytes": nbytes,
-                           "max_abs_err": case["max_abs_err"],
-                           **{k: case[k] for k in ("group", "blk", "row")
-                              if k in case}})
+                           "max_abs_err": case["max_abs_err"], **extra})
         top = max(shapes, key=lambda s: s["ms"])
         by_path = {"main": state["main_launches"][name],
                    "mesh": state["mesh_launches"][name],
+                   "hash": state["hash_launches"][name],
                    **{cfg: c[name]
                       for cfg, c in state["engine_launches"].items()}}
-        launches = (by_path["main"] if name in DEFAULT_KERNELS else
-                    sum(v for k, v in by_path.items()
-                        if k not in ("main", "mesh")))
+        if name in DEFAULT_KERNELS:
+            launches = by_path["main"]
+        elif name in HASH_KERNELS:
+            launches = by_path["hash"]
+        else:
+            launches = sum(v for k, v in by_path.items()
+                           if k not in ("main", "mesh", "hash"))
         source, replaces = KERNELS[name]
         rows.append({"name": name, "route": "cuda", "source": CSRC + source,
                      "replaces": replaces, "launches": launches,
@@ -1358,7 +1841,13 @@ def phase_timing(state, torch):
                      "ms": top["ms"], "plain_ms": top["plain_ms"],
                      "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
                      "library_ms": None, "matches_plain": True,
-                     "shape": top["shape"], "shapes": shapes})
+                     "shape": top["shape"], "shapes": shapes,
+                     **({"host_hashlib_ms": top["host_hashlib_ms"],
+                         "min_ops_per_block": (
+                             SHA512_BLOCK_OPS if name == "sha512_blocks"
+                             else SHA256_BLOCK_OPS),
+                         "sass_block_loop": sass.get(name, sass)}
+                        if name in HASH_KERNELS else {})})
     for name, fn in _kernels().items():   # timing launches do not count
         fn.launches = saved[name]
     state["kernel_rows"] = rows + [state["k8_row"]]

@@ -22,7 +22,8 @@ def _tensor(arr, dtype) -> torch.Tensor:
 
 
 def words_from_numpy(words: np.ndarray, device) -> torch.Tensor:
-    """(8, W) uint32 little-endian words -> int32 bit-pattern tensor."""
+    """uint32 words of any shape (the packers' (8, W) encodings, the
+    (N, B, 16) SHA-2 blocks) -> int32 bit-pattern tensor on `device`."""
     arr = np.require(words, dtype=np.uint32, requirements=["C"])
     return _tensor(arr.view(np.int32), np.int32).to(device)
 
@@ -54,3 +55,33 @@ def a_table_from_numpy(a_tab, a_ok, device):
     rlc_verify_kernel_cached_a takes."""
     return (_tensor(a_tab, np.int32).to(device),
             torch.tensor(bool(np.asarray(a_ok)), device=device))
+
+
+def rlc_hash_from_numpy(packed, device):
+    """pack_rlc_device_hash's ten arrays -> the argument tuple of
+    ops/ed25519.rlc_verify_hash_kernel on `device`: words and SHA-512
+    blocks as int32 bit patterns, scalar limbs as int64."""
+    (a_words, r_words, base_limbs, z_limbs, group_ids,
+     blocks_hi, blocks_lo, n_blocks, r_mag, r_neg) = packed
+    return (words_from_numpy(a_words, device),
+            words_from_numpy(r_words, device),
+            _tensor(base_limbs, np.int64).to(device),
+            _tensor(z_limbs, np.int64).to(device),
+            _tensor(group_ids, np.int64).to(device),
+            words_from_numpy(blocks_hi, device),
+            words_from_numpy(blocks_lo, device),
+            _tensor(n_blocks, np.int32).to(device),
+            _tensor(r_mag, np.int32).to(device),
+            _tensor(r_neg, bool).to(device))
+
+
+def batch_hash_from_numpy(a_words, r_words, s_limbs, blocks_hi, blocks_lo,
+                          n_blocks, device):
+    """pack_batch_device_hash's arrays -> ops/ed25519.verify_hash_kernel's
+    arguments on `device`."""
+    return (words_from_numpy(a_words, device),
+            words_from_numpy(r_words, device),
+            _tensor(s_limbs, np.int32).to(device),
+            words_from_numpy(blocks_hi, device),
+            words_from_numpy(blocks_lo, device),
+            _tensor(n_blocks, np.int32).to(device))

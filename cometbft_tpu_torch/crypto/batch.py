@@ -8,7 +8,12 @@ verification, ed25519 only (the counterpart of
   signatures — CometBFT's verifyCommitBatch -> verifyCommitSingle
   pattern.
 - CpuEd25519BatchVerifier is the host loop (pure-Python ZIP-215),
-  used below the device threshold.
+  used below the device threshold or when COMETBFT_TPU_PROVIDER=cpu.
+- _device_verify_hash is the device-hash route: hashing, aggregation
+  and recode run on the device as well.  In the JAX package its
+  pipeline takes this route under COMETBFT_TPU_DEVICE_HASH=1; the
+  pipeline is not ported, so no variable selects it here and a caller
+  calls the function itself.
 
 create_batch_verifier resolves its device first: without a card it
 raises unless the caller asks for device="cpu".
@@ -109,6 +114,52 @@ def _device_verify(pubkeys: list[bytes], parsed,
     return all(out) and bool(out), out
 
 
+_NO_PACK = object()
+
+
+def _device_verify_hash(pubkeys: list[bytes], msgs: list[bytes], parsed,
+                        packed=_NO_PACK,
+                        device="cuda") -> tuple[bool, list[bool]]:
+    """_device_verify with device-side hash-to-scalar: SHA-512 (K9), the
+    reduction mod L, the per-pubkey aggregation and the A-side recode
+    run on the device (ops/ed25519.rlc_verify_hash_kernel), and so does
+    the per-signature localization on a reject (verify_hash_kernel):
+    no digest crosses back to the host.  `parsed` is a parse_batch
+    result ((r_enc, s) | None, no h); `packed` a pack_rlc_device_hash
+    result made ahead of time.
+
+    An un-placed dispatch ("cuda", no index) splits a large batch over
+    the mesh first (crypto/mesh.maybe_split_verify_hash); localization
+    runs on one device, as in the JAX package.  Raises
+    ValueError("message exceeds max_blocks") when a message outgrows
+    the static block bucket."""
+    from .. import convert
+    from ..ops import device as devmod
+    from ..ops import ed25519 as dev
+    from . import mesh
+
+    device = devmod.resolve(device)
+    n = len(pubkeys)
+    if n >= 2:
+        rlc_ok = None
+        if packed is _NO_PACK and not _placed(device):
+            rlc_ok = mesh.maybe_split_verify_hash(pubkeys, msgs, parsed)
+        if rlc_ok is None:
+            if packed is _NO_PACK:
+                packed = ed.pack_rlc_device_hash(pubkeys, msgs, [b""] * n,
+                                                 parsed=parsed)
+            rlc_ok = packed is not None and ed.rlc_verify_hash(
+                packed, device=device)
+        if rlc_ok:
+            return True, [True] * n
+    a, r, s, bh, bl, nb, valid = ed.pack_batch_device_hash(
+        pubkeys, msgs, [b""] * n, dev.bucket_size(n), parsed=parsed)
+    verdict = dev.verify_hash_kernel(*convert.batch_hash_from_numpy(
+        a, r, s, bh, bl, nb, device))
+    out = (verdict.cpu().numpy() & valid)[:n].tolist()
+    return all(out) and bool(out), out
+
+
 # below this many signatures the host loop wins (CometBFT's analog is
 # batchVerifyThreshold = 2; the device round-trip has a fixed cost)
 DEVICE_THRESHOLD = int(os.environ.get("COMETBFT_TPU_BATCH_THRESHOLD", "8"))
@@ -131,14 +182,23 @@ def supports_batch_verifier(key_type: str) -> bool:
 
 
 def create_batch_verifier(key_type: str = "ed25519", n_hint: int = 0,
-                          device="cuda") -> BatchVerifier:
-    """The host loop below DEVICE_THRESHOLD expected signatures
-    (n_hint), else the device programs on `device`."""
+                          device="cuda",
+                          provider: str | None = None) -> BatchVerifier:
+    """The verifier `provider` names, as the JAX package reads it
+    (argument first, else COMETBFT_TPU_PROVIDER, default "auto"): "cpu"
+    is the host loop at any size, "tpu" the device programs on `device`
+    at any size, and anything else picks by n_hint: the host loop below
+    DEVICE_THRESHOLD expected signatures, else the device programs."""
     from ..ops import device as devmod
 
     dev = devmod.resolve(device)
+    provider = provider or os.environ.get("COMETBFT_TPU_PROVIDER", "auto")
     if key_type not in _SUPPORTED:
         raise ValueError(f"no batch verifier for key type {key_type}")
+    if provider == "cpu":
+        return CpuEd25519BatchVerifier()
+    if provider == "tpu":
+        return CudaEd25519BatchVerifier(dev)
     if n_hint and n_hint < DEVICE_THRESHOLD:
         return CpuEd25519BatchVerifier()
     return CudaEd25519BatchVerifier(dev)

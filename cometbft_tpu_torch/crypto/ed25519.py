@@ -179,23 +179,29 @@ def _recode_w5_scalar(values: list[int], ndig: int, width: int):
             np.ascontiguousarray(neg.T[::-1]))
 
 
-def _recode_w5(values: list[int], ndig: int, width: int):
+def _recode_w5(values, ndig: int, width: int):
     """Signed radix-32 recoding: each value becomes ndig digits in
     [-16, 15], emitted MSB-first as magnitude (int32) and sign (bool)
     arrays of shape (ndig, width); pad columns stay zero.
 
     Vectorized via the bias trick: the signed digits of x are the plain
-    base-32 digits of x + BIAS minus 16, BIAS = sum_j 16*32**j."""
+    base-32 digits of x + BIAS minus 16, BIAS = sum_j 16*32**j.
+    `values` is a list of ints or an (n, _recode_nbytes(ndig)) uint8
+    array of little-endian bytes (the device-hash packer's z block)."""
     n = len(values)
     mag = np.zeros((width, ndig), np.int32)
     neg = np.zeros((width, ndig), bool)
     if n:
         nbytes = _recode_nbytes(ndig)
-        assert max(values) < 1 << (5 * ndig), \
-            "scalar out of range for recoding width"
-        raw = np.frombuffer(
-            b"".join(v.to_bytes(nbytes, "little") for v in values),
-            dtype=np.uint8).reshape(n, nbytes).astype(np.uint16)
+        if isinstance(values, np.ndarray):
+            assert values.shape == (n, nbytes) and values.dtype == np.uint8
+            raw = values.astype(np.uint16)
+        else:
+            assert max(values) < 1 << (5 * ndig), \
+                "scalar out of range for recoding width"
+            raw = np.frombuffer(
+                b"".join(v.to_bytes(nbytes, "little") for v in values),
+                dtype=np.uint8).reshape(n, nbytes).astype(np.uint16)
         bias = np.frombuffer(
             sum(16 << (5 * j) for j in range(ndig)).to_bytes(
                 nbytes, "little"), dtype=np.uint8).astype(np.uint16)
@@ -412,3 +418,203 @@ def rlc_verify_async(packed, use_cache: bool | None = None, device="cuda"):
 def rlc_verify(packed, use_cache: bool | None = None, device="cuda") -> bool:
     """rlc_verify_async, then the verdict read back."""
     return bool(rlc_verify_async(packed, use_cache=use_cache, device=device))
+
+
+# ---------------------------------------------------------------------------
+# device-side hash-to-scalar packing
+# ---------------------------------------------------------------------------
+#
+# The device-hash program (ops/ed25519.rlc_verify_hash_kernel) computes
+# h = SHA512(R||A||M) mod L, zh = z*h, the per-pubkey aggregation AND
+# the signed-window recode on the card; the host's per-signature work
+# shrinks to a structural parse plus one columnar message pad.  No
+# digest or scalar crosses back to the host.
+
+
+# Static SHA-512 block bucket for R||A||M messages.  Vote sign-bytes
+# are ~110-130 bytes; +64 for R||A and +17 of padding needs 3 blocks.
+# A longer message raises ValueError("message exceeds max_blocks").
+DEVICE_HASH_MAX_BLOCKS = int(os.environ.get(
+    "COMETBFT_TPU_DEVICE_HASH_BLOCKS", "3"))
+
+
+def parse_batch(pubkeys: list[bytes],
+                sigs: list[bytes]) -> list[tuple[bytes, int] | None]:
+    """Structural parse ONLY (lengths, s < L): the host side of the
+    device-hash path, where parse_and_hash's hashlib loop never runs."""
+    return [parse_signature(sig) if len(pk) == PUBKEY_SIZE else None
+            for pk, sig in zip(pubkeys, sigs)]
+
+
+def pack_rlc_device_hash(pubkeys: list[bytes], msgs: list[bytes],
+                         sigs: list[bytes], parsed=None,
+                         max_blocks: int | None = None):
+    """Pack a batch for the device-hash RLC program, byte for byte as
+    the JAX package packs it.
+
+    `parsed` is a parse_batch result ((r_enc, s) | None per entry, no
+    h).  Host work per signature: a 128-bit z draw (one block from
+    `secrets`), c += z*s mod L, and the R||A||M byte splice; hashing,
+    the per-pubkey zh aggregation and the A-side recode run on the
+    device.  Callers that parsed ahead of time may pass placeholder
+    sigs: the 64-byte rows are rebuilt from parsed's (r_enc, s).
+
+    Returns the program's argument tuple (a_words (8,K), r_words (8,N),
+    base_limbs (K,16), z_limbs (N,8), group_ids (N,), blocks_hi/lo
+    (N,B,16), n_blocks (N,), r_mag/r_neg (26,N)) as numpy arrays, or
+    None if any entry fails the structural checks.  Raises
+    ValueError("message exceeds max_blocks") when a message outgrows
+    the block bucket."""
+    from ..ops import ed25519 as dev
+    from ..ops import sha2
+
+    n = len(pubkeys)
+    if n == 0:
+        return None
+    if parsed is None:
+        parsed = parse_batch(pubkeys, sigs)
+    if max_blocks is None:
+        max_blocks = DEVICE_HASH_MAX_BLOCKS
+
+    zraw = np.frombuffer(secrets.token_bytes(16 * n),
+                         dtype=np.uint8).reshape(n, 16).copy()
+    zraw[:, 15] |= 0x80                    # pin the top bit, like pack_rlc
+
+    if any(p is None for p in parsed):
+        return None
+    if len(sigs[0]) != 64:
+        sigs = [r_enc + s.to_bytes(32, "little") for r_enc, s in parsed]
+
+    # every sig is 64 bytes and every key 32 from here: the batch
+    # flattens into two matrices
+    nbatch = dev.pad_width(n)
+    filler = np.frombuffer(_B_ENC, dtype=np.uint32)
+    sig_mat = np.frombuffer(b"".join(sigs), dtype=np.uint8).reshape(n, 64)
+    pk_mat = np.frombuffer(b"".join(pubkeys), dtype=np.uint8).reshape(n, 32)
+    r_words = np.empty((nbatch, 8), dtype=np.uint32)
+    r_words[:] = filler
+    r_words[:n] = np.ascontiguousarray(sig_mat[:, :32]).view(np.uint32)
+
+    # group ids: unique keys by a byte-comparing sort, remapped to
+    # FIRST-APPEARANCE order so the slots match the host-hash packer
+    pk_void = pk_mat.view(np.dtype((np.void, 32))).ravel()
+    _, first_idx, inv = np.unique(pk_void, return_index=True,
+                                  return_inverse=True)
+    n_keys = len(first_idx)
+    remap = np.empty(n_keys, dtype=np.int32)
+    remap[np.argsort(first_idx)] = np.arange(n_keys, dtype=np.int32)
+    group_ids = np.zeros(nbatch, dtype=np.int32)
+    group_ids[:n] = remap[inv.reshape(-1)] + 1
+
+    # c = sum(z_i * s_i) mod L as one uint16-limb convolution: column
+    # sums stay under 8n * 2**32, far below 2**64
+    s16 = np.ascontiguousarray(sig_mat[:, 32:]).view(np.uint16)
+    z16 = zraw.view(np.uint16)
+    cols = np.zeros(23, dtype=np.uint64)
+    for j in range(8):
+        cols[j:j + 16] += (z16[:, j:j + 1].astype(np.uint64)
+                           * s16).sum(axis=0)
+    c = sum(int(v) << (16 * k) for k, v in enumerate(cols)) % L
+
+    # columnar R||A||M assembly straight into the padded block matrix
+    mlens = np.fromiter((len(m) for m in msgs), dtype=np.int64, count=n)
+    lens = np.zeros(nbatch, dtype=np.int64)
+    lens[:n] = 64 + mlens
+    if int(lens.max()) + 1 + 16 > max_blocks * 128:
+        raise ValueError("message exceeds max_blocks")
+    mat = np.zeros((nbatch, max_blocks * 128), dtype=np.uint8)
+    mat[:n, :32] = sig_mat[:, :32]
+    mat[:n, 32:64] = pk_mat
+    flat = np.frombuffer(b"".join(msgs), dtype=np.uint8)
+    m0 = int(mlens[0])
+    if np.all(mlens == m0):
+        mat[:n, 64:64 + m0] = flat.reshape(n, m0)
+    else:
+        colix = np.arange(max_blocks * 128, dtype=np.int64)
+        mask = (colix[None, :] >= 64) & (colix[None, :] < lens[:n, None])
+        mat[:n][mask] = flat
+    blocks_hi, blocks_lo, n_blocks = sha2.pad_sha512_matrix(mat, lens)
+    n_blocks[n:] = 0                       # fillers: z = 0 keeps them inert
+
+    kbatch = dev.pad_width(1 + n_keys)
+    a_words = np.empty((kbatch, 8), dtype=np.uint32)
+    a_words[:] = filler
+    a_words[0] = np.frombuffer(_NEG_B_ENC, dtype=np.uint32)
+    a_words[1:1 + n_keys] = np.ascontiguousarray(
+        pk_mat[np.sort(first_idx)]).view(np.uint32)
+    base_limbs = np.zeros((kbatch, 16), dtype=np.uint32)
+    base_limbs[0] = int_to_limbs16(c, 16)
+
+    z_limbs = np.zeros((nbatch, 8), dtype=np.uint32)
+    z_limbs[:n] = zraw[:, 0::2].astype(np.uint32) | \
+        (zraw[:, 1::2].astype(np.uint32) << 8)
+    zbytes = np.zeros((n, _recode_nbytes(NDIG_128)), dtype=np.uint8)
+    zbytes[:, :16] = zraw
+    r_mag, r_neg = _recode_w5(zbytes, NDIG_128, nbatch)
+    return (np.ascontiguousarray(a_words.T),
+            np.ascontiguousarray(r_words.T),
+            base_limbs, z_limbs, group_ids,
+            blocks_hi, blocks_lo, n_blocks, r_mag, r_neg)
+
+
+def pack_batch_device_hash(pubkeys: list[bytes], msgs: list[bytes],
+                           sigs: list[bytes], batch_size: int,
+                           parsed=None, max_blocks: int | None = None):
+    """Per-signature packing with device-side hashing, the reject
+    localization of the device-hash path.
+
+    Returns (a_words (8,B), r_words (8,B), s_limbs (16,B), blocks_hi/lo
+    (B,Bk,16), n_blocks (B,), valid (B,)) numpy arrays; raises
+    ValueError on an oversized message like pack_rlc_device_hash."""
+    from ..ops import sha2
+
+    n = len(pubkeys)
+    assert batch_size >= n
+    if parsed is None:
+        parsed = parse_batch(pubkeys, sigs)
+    if max_blocks is None:
+        max_blocks = DEVICE_HASH_MAX_BLOCKS
+    valid = np.zeros(batch_size, dtype=bool)
+    a_words = np.zeros((batch_size, 8), dtype=np.uint32)
+    r_words = np.zeros((batch_size, 8), dtype=np.uint32)
+    s_limbs = np.zeros((batch_size, 16), dtype=np.uint32)
+    hash_msgs = []
+    for i in range(n):
+        if parsed[i] is None:
+            hash_msgs.append(b"")
+            continue
+        r_enc, s = parsed[i]
+        valid[i] = True
+        a_words[i] = np.frombuffer(pubkeys[i], dtype=np.uint32)
+        r_words[i] = np.frombuffer(r_enc, dtype=np.uint32)
+        s_limbs[i] = int_to_limbs16(s, 16)
+        hash_msgs.append(r_enc + pubkeys[i] + msgs[i])
+    blocks_hi, blocks_lo, n_blocks = sha2.pad_sha512(
+        hash_msgs + [b""] * (batch_size - n), max_blocks)
+    n_blocks[~valid] = 0
+    filler = np.frombuffer(_B_ENC, dtype=np.uint32)
+    a_words[~valid] = filler
+    r_words[~valid] = filler
+    return (np.ascontiguousarray(a_words.T),
+            np.ascontiguousarray(r_words.T),
+            np.ascontiguousarray(s_limbs.T),
+            blocks_hi, blocks_lo, n_blocks, valid)
+
+
+def rlc_verify_hash_async(packed, device="cuda"):
+    """Copy a pack_rlc_device_hash batch to `device` and launch its
+    device-hash RLC program there; returns the 0-dim bool verdict tensor
+    without waiting for it (see rlc_verify_async).  No A-table cache:
+    the program recodes its A scalars on the device."""
+    from .. import convert
+    from ..ops import device as devmod
+    from ..ops import ed25519 as dev
+
+    device = devmod.resolve(device)
+    return dev.rlc_verify_hash_kernel(
+        *convert.rlc_hash_from_numpy(packed, device))
+
+
+def rlc_verify_hash(packed, device="cuda") -> bool:
+    """rlc_verify_hash_async, then the verdict read back."""
+    return bool(rlc_verify_hash_async(packed, device=device))

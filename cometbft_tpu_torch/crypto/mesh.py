@@ -103,6 +103,53 @@ def maybe_split_verify(pubkeys: list[bytes], parsed,
     return all(verdicts)
 
 
+def split_rlc_verify_hash(pubkeys: list[bytes], msgs: list[bytes],
+                          parsed, devices):
+    """split_rlc_verify for the device-hash program: each chunk's pack
+    carries its own message blocks to its device.  `parsed` is a
+    parse_batch result ((r_enc, s) | None).  Returns the per-chunk bool
+    list, or None when a chunk fails structural packing; propagates
+    pack_rlc_device_hash's ValueError on an oversized message.
+
+    Every chunk's inputs are copied before any program is launched, and
+    every program is launched before any verdict is read: a copy from
+    host memory waits for its device's queue, so a copy made after a
+    launch on the same device would run the chunks one after another."""
+    from .. import convert
+    from ..ops import device as devmod
+    from ..ops import ed25519 as dev
+    from . import ed25519 as ed
+
+    spans = split_spans(len(pubkeys), len(devices))
+    packs = []
+    for a, b in spans:
+        packed = ed.pack_rlc_device_hash(pubkeys[a:b], msgs[a:b],
+                                         [b""] * (b - a),
+                                         parsed=parsed[a:b])
+        if packed is None:
+            return None
+        packs.append(packed)
+    args = [convert.rlc_hash_from_numpy(packed, devmod.resolve(d))
+            for packed, d in zip(packs, devices)]
+    outs = [dev.rlc_verify_hash_kernel(*a) for a in args]
+    return [bool(o) for o in outs]
+
+
+def maybe_split_verify_hash(pubkeys: list[bytes], msgs: list[bytes],
+                            parsed, min_split: int | None = None):
+    """maybe_split_verify for the device-hash path (the
+    crypto/batch._device_verify_hash hook)."""
+    if len(pubkeys) < (min_split if min_split is not None else MIN_SPLIT):
+        return None
+    devices = mesh_devices()
+    if devices is None:
+        return None
+    verdicts = split_rlc_verify_hash(pubkeys, msgs, parsed, devices)
+    if verdicts is None:
+        return False
+    return all(verdicts)
+
+
 def verify_batch_mesh(pubkeys: list[bytes], parsed, devices=None):
     """Per-signature verdicts with the batch axis split over `devices`
     (None: every local card) and the bucket sized so that they divide

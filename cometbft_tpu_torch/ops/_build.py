@@ -51,6 +51,10 @@ SIGNATURES = {
         "ed25519_group_warps": [],
         "ed25519_group_quads": [],
     },
+    "sha2_kernels": {
+        "sha512_blocks": [_P, _P, _P, _I64, _I32, _P, _P, _P],
+        "sha256_blocks": [_P, _P, _I64, _I32, _P, _P],
+    },
 }
 
 _lock = threading.Lock()

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 
@@ -23,6 +24,24 @@ def resolve(device) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r}")
     return dev
+
+
+_CONSTANTS: dict = {}
+
+
+def constant(arr: np.ndarray, device, dtype) -> torch.Tensor:
+    """A host constant as a `dtype` tensor on `device`, copied there on
+    first use and kept: a copy from pageable host memory inside a
+    program would make the host wait for the card's queue.  Callers
+    must not write to it."""
+    arr = np.asarray(arr)
+    key = (arr.dtype.str, arr.shape, arr.tobytes(), dtype,
+           torch.device(device))
+    t = _CONSTANTS.get(key)
+    if t is None:
+        t = torch.as_tensor(arr).to(dtype=dtype, device=device)
+        _CONSTANTS[key] = t
+    return t
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

@@ -8,7 +8,9 @@ the RLC program go through the kernel wrappers of ops/cuda_decompress.py
 (K1) and ops/cuda_msm.py (K2-K7): on a CUDA tensor each launches its
 hand-written kernel, on a CPU tensor it runs its plain version.
 Everything else here is plain torch on whatever device its inputs live
-on.
+on.  The device-hash programs (rlc_verify_hash_kernel, verify_hash_kernel)
+hash R||A||M on K9 (ops/sha2.py) and reduce, aggregate and recode in
+torch ops before the same programs.
 
 The MSM engine is chosen as in the JAX package, by the same environment
 variables with the same defaults, read at import into the module flags
@@ -36,7 +38,12 @@ import numpy as np
 import torch
 
 from . import cuda_decompress, cuda_msm
+from . import device as devmod
 from . import fe
+from . import limbs as lb
+from . import msm as msm_engine
+from . import scalar25519 as sc
+from . import sha2
 from ..crypto import ed25519_ref as ref
 
 _X, _Y, _Z, _T = 0, 1, 2, 3
@@ -47,7 +54,7 @@ _X, _Y, _Z, _T = 0, 1, 2, 3
 # ---------------------------------------------------------------------------
 
 def identity_point(batch_shape, device) -> torch.Tensor:
-    one = torch.as_tensor(fe.ONE_LIMBS, dtype=torch.int32, device=device)
+    one = devmod.constant(fe.ONE_LIMBS, device, torch.int32)
     one = one.reshape((fe.NLIMBS,) + (1,) * len(batch_shape)).expand(
         (fe.NLIMBS,) + tuple(batch_shape))
     zero = torch.zeros_like(one)
@@ -362,7 +369,7 @@ def verify_kernel(a_words, r_words, s_limbs, h_limbs):
     for _ in range(14):
         rows.append(add_cached(rows[-1], neg_a_cached))
     neg_a_tab = torch.stack([to_cached(r) for r in rows], dim=0)
-    btab = torch.as_tensor(_BTAB_NP, device=a_pt.device)[..., None]
+    btab = devmod.constant(_BTAB_NP, a_pt.device, torch.int32)[..., None]
     s_nib = _nibbles(s_limbs)
     h_nib = _nibbles(h_limbs)
 
@@ -377,6 +384,105 @@ def verify_kernel(a_words, r_words, s_limbs, h_limbs):
     for _ in range(3):               # cofactor 8
         acc = point_double(acc, with_t=False)
     return ok_a & ok_r & point_is_identity(acc)
+
+
+# ---------------------------------------------------------------------------
+# device-side hash-to-scalar
+# ---------------------------------------------------------------------------
+#
+# The device-hash programs take padded SHA-512 blocks of R||A||M instead
+# of host-computed h: SHA-512 runs on K9 (ops/sha2.py), the reduction
+# mod L, the z*h products, the per-key aggregation and the A-side
+# signed-digit recode are torch ops on the same device.  Filler lanes
+# carry z = 0, group 0 and n_blocks 0, so their zh vanishes whatever
+# their (zeroed) blocks hash to.  There is no A-table cache on this
+# path, as in the JAX package.
+#
+# Signed-digit recode without a sequential carry sweep: the signed
+# 5-bit digits of x are the base-32 digits of x + BIAS minus 16, where
+# BIAS = sum_j 16*32**j.
+
+_NDIG_A = 52                       # 256-bit scalars, 5-bit windows
+_W5_BIAS_LIMBS = lb.int_to_limbs(
+    sum(16 << (5 * j) for j in range(_NDIG_A)), 17)
+
+
+def _h_scalars(blocks_hi, blocks_lo, n_blocks):
+    """Padded message blocks -> (N, 16) int64 limbs of SHA512(msg) mod L."""
+    sh, sl = sha2.sha512_blocks(blocks_hi, blocks_lo, n_blocks)
+    return sc.barrett_reduce_wide(sc.digest512_to_wide_limbs(sh, sl))
+
+
+def _zh_mod_l(z_limbs, h_limbs):
+    """(N, 8) z limbs x (N, 16) h limbs -> (N, 16) z*h mod L.  The
+    384-bit product is < 2**381, inside Barrett's 512-bit domain."""
+    prod = lb.mul(z_limbs, h_limbs)                       # (N, 24)
+    pad = prod.new_zeros(prod.shape[:-1] + (sc.WIDE - prod.shape[-1],))
+    return sc.barrett_reduce_wide(torch.cat([prod, pad], dim=-1))
+
+
+def _segment_sum_mod_l(zh, group_ids, k):
+    """Per-A-slot sum of zh rows mod L: (N, 16) x (N,) -> (k, 16).
+
+    The JAX package scatters in radix 2**8 because 16-bit limbs overflow
+    uint32 past N = 65,536; here the scatter-add runs on int64 columns,
+    which hold N * (2**16 - 1) for any N below 2**47.  One carry sweep
+    over 32 limbs then normalizes the sum (< N * L) for Barrett."""
+    acc = zh.new_zeros((k, zh.shape[-1]))
+    acc.index_add_(0, group_ids.long(), zh)
+    wide = torch.cat([acc, acc.new_zeros((k, sc.WIDE - acc.shape[-1]))],
+                     dim=-1)
+    limbs, _ = lb.carry_prop(wide)
+    return sc.barrett_reduce_wide(limbs)
+
+
+def _add_mod_l(a, b):
+    """(..., 16) + (..., 16) mod L for inputs already < L."""
+    s, _ = lb.carry_prop(a + b)                           # sum < 2L < 2**254
+    return lb.cond_sub(s, lb.const(sc.L_LIMBS, s))
+
+
+def _recode_w5_device(scalars):
+    """(K, 16) limbs (< L) -> ((52, K) int32, (52, K) bool) signed-window
+    digit magnitudes and signs, MSB-first: bit-identical to the host
+    crypto/ed25519._recode_w5."""
+    pad = scalars.new_zeros(scalars.shape[:-1] + (1,))
+    xb, _ = lb.carry_prop(torch.cat([scalars, pad], dim=-1)
+                          + lb.const(_W5_BIAS_LIMBS, scalars))   # (K, 17)
+    return msm_engine.recode_biased_digits(xb, 5, _NDIG_A)
+
+
+def rlc_verify_hash_kernel(a_words, r_words, base_limbs, z_limbs,
+                           group_ids, blocks_hi, blocks_lo, n_blocks,
+                           r_mag, r_neg):
+    """Whole-batch RLC verify with device-side hash-to-scalar: one 0-dim
+    bool verdict.
+
+    a_words: (8, K) distinct-pubkey encodings (slot 0 = -B, pads = B);
+    r_words: (8, N) R encodings (int32 bit patterns);
+    base_limbs: (K, 16) host scalar per A slot (slot 0 = c = sum z*s
+                mod L, others zero); z_limbs: (N, 8) 128-bit z_i;
+    group_ids: (N,) A-slot index per signature (fillers -> 0, where
+               z = 0 keeps them inert);
+    blocks_hi/lo: (N, B, 16) int32 padded SHA-512 blocks of R||A||M;
+    n_blocks: (N,) int32; r_mag/r_neg: (26, N) z_i window digits,
+    MSB-first.  The verdict comes from rlc_verify_kernel (K1-K4)."""
+    h = _h_scalars(blocks_hi, blocks_lo, n_blocks)        # (N, 16)
+    zh = _zh_mod_l(z_limbs.long(), h)                     # (N, 16)
+    seg = _segment_sum_mod_l(zh, group_ids, a_words.shape[-1])
+    a_mag, a_neg = _recode_w5_device(_add_mod_l(base_limbs.long(), seg))
+    return rlc_verify_kernel(a_words, r_words, a_mag, a_neg, r_mag, r_neg)
+
+
+def verify_hash_kernel(a_words, r_words, s_limbs, blocks_hi, blocks_lo,
+                       n_blocks):
+    """Per-signature verify with device-side hashing: the reject
+    localization of the device-hash path, so digests stay on the device
+    when a batch fails and single verdicts are needed.  s_limbs: (16, N)
+    int32; returns (N,) bool verdicts from verify_kernel."""
+    h = _h_scalars(blocks_hi, blocks_lo, n_blocks)        # (N, 16)
+    return verify_kernel(a_words, r_words, s_limbs,
+                         h.T.to(torch.int32).contiguous())
 
 
 # ---------------------------------------------------------------------------

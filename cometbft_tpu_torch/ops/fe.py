@@ -21,6 +21,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import device as devmod
+
 NLIMBS = 20
 RADIX = 13
 BASE = 1 << RADIX            # 8192
@@ -80,17 +82,10 @@ _PAD_8P[NLIMBS - 1] = _t
 assert sum(int(v) << (RADIX * i) for i, v in enumerate(_PAD_8P)) == 8 * P
 assert (_PAD_8P >= 2047).all()
 
-_CONST_CACHE: dict = {}
-
-
 def const(limbs: np.ndarray, like: torch.Tensor) -> torch.Tensor:
     """(20,) host constant -> (20, 1, ...) int32 tensor on like's device,
     broadcastable against like."""
-    key = (limbs.tobytes(), like.device)
-    t = _CONST_CACHE.get(key)
-    if t is None:
-        t = torch.as_tensor(limbs, dtype=torch.int32).to(like.device)
-        _CONST_CACHE[key] = t
+    t = devmod.constant(limbs, like.device, torch.int32)
     return t.reshape((NLIMBS,) + (1,) * (like.dim() - 1))
 
 

@@ -3,6 +3,8 @@ commit verification reads from `cometbft_tpu.types.validator_set`).
 
 Validators are kept sorted by address ascending, as CometBFT keeps them,
 so a commit's signature i belongs to validators[i] in both packages.
+ValidatorSet.hash() is the Merkle root of the validators' SimpleValidator
+bytes, its leaves hashed on the card (crypto/merkle.py).
 Priority rotation and ABCI updates are not ported: a fresh set's first
 proposer is the validator of highest voting power, ties to the lower
 address — what one round of CometBFT's priority walk picks from equal
@@ -12,6 +14,9 @@ starting priorities.
 from __future__ import annotations
 
 from dataclasses import dataclass
+
+from ..crypto import encoding, merkle
+from ..libs import protowire as pw
 
 MAX_INT64 = (1 << 63) - 1
 MAX_TOTAL_VOTING_POWER = MAX_INT64 // 8
@@ -31,6 +36,13 @@ class Validator:
     def copy(self) -> "Validator":
         return Validator(self.pub_key, self.voting_power,
                          self.proposer_priority, self.address)
+
+    def bytes(self) -> bytes:
+        """SimpleValidator proto: pub_key = 1 (always emitted), power = 2
+        (CometBFT types/validator.go Bytes)."""
+        return (pw.Writer()
+                .message_field(1, encoding.pubkey_to_proto(self.pub_key))
+                .int_field(2, self.voting_power).bytes())
 
 
 class ValidatorSet:
@@ -70,3 +82,10 @@ class ValidatorSet:
 
     def get_proposer(self) -> Validator | None:
         return self.proposer.copy() if self.proposer is not None else None
+
+    def hash(self, device="cuda") -> bytes:
+        """Merkle root over the validators' bytes; the leaf hashes run
+        on `device` in one K10 launch from
+        crypto/hash.DEVICE_HASH_THRESHOLD validators on (hashlib below)."""
+        return merkle.hash_from_byte_slices_device(
+            [v.bytes() for v in self.validators], device=device)
