@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's Ed25519 commit-verification path on one
-NVIDIA card, in each of its MSM engine configurations, and hold each of
-its CUDA kernels against its plain torch version.
+"""Drive the PyTorch/CUDA port's commit-verification paths on one NVIDIA
+card (Ed25519 in each of its MSM engine configurations, the device-hash
+route, secp256k1 and mixed-key commits), and hold each of its CUDA
+kernels against its plain torch version.
 
     python3 chip_smoke.py
 
@@ -52,7 +53,27 @@ result):
              the host packing time of pack_rlc_device_hash beside
              parse_and_hash + pack_rlc, and each route's time (printed,
              nothing claimed);
-  7. engines the same entry points under each MSM engine configuration
+  7. secp    secp256k1 on the card (crypto/secp256k1.py, K11-K13): a
+             150-validator all-secp256k1 commit through
+             verify_commit_light (accept; one bad signature named by
+             index), a 48-commit window through DeferredSigBatch (101
+             signatures a commit over all 150 keys, K = 192) twice, the
+             second a QTableCache hit, and with one bad signature named
+             by height; bench.py's 4,096-signature batch over 128 keys,
+             clean and with r = 0, s >= n, high s, a key that fails to
+             decompress, a tampered message and r + n < p, on the MSM
+             program and on the ladder (COMETBFT_TPU_SECP_MSM=0);
+             bench.py's mixed commit, 9,000 ed25519 + 1,000 secp256k1
+             signatures (one bad of each) through MixedBatchVerifier; the
+             hostile batch split over two devices.  Each call's launches
+             are exact (one K12 a MSM call, K11 on a key-table miss only,
+             one K13 a ladder call; the mixed commit's ed25519 part the
+             whole RLC program, 2 K1, 2 K2, 2 K3 and 1 K4, and one K1
+             for its localization); every verdict is _verify_py's
+             (ed25519: ed25519_ref.verify's).  Outside the count: the
+             host waits inside verify_msm_async (none allowed), the
+             split's launch-before-read order, the host packing time;
+  8. engines the same entry points under each MSM engine configuration
              (the JAX package's flags, set on the port's modules):
              window_loop (K6), window_loop_blk2048 (K6 under
              COMETBFT_TPU_PALLAS_BLK=2048: 1, 8 and 16 rows per output
@@ -64,7 +85,7 @@ result):
              window_loop configurations and grouped_g4 the clean 8,192
              batch, each verdict the default engine's; each must launch
              exactly its configuration's kernels;
-  8. kernels each kernel vs its plain version on the card, at the shapes
+  9. kernels each kernel vs its plain version on the card, at the shapes
              phases 2-4 gave it (exact integer equality; K1 at the four
              main-path widths and on hostile encodings, K1 and K2 also at
              the ragged widths 1, 7 and 129; K3 also at the commit's two
@@ -80,18 +101,26 @@ result):
              of the window's localization) and K9 / K10 at their padding
              boundaries, with rows whose block count is 0, word for word
              and against hashlib; K10 at the 10,000 validator leaves;
-  9. timing  each kernel's median time over runs of 10 launches back to
+             K11 at K = 4, 128 and 192, limb for limb; K12 at the commit's,
+             window's and batch's packs and at the commit's with r moved
+             into the r + n slot (accepted with rn_valid set, rejected
+             without), and K13 at the hostile batch and
+             at the edges of its exact additions (doubling, cancelling,
+             infinity, nibbles outside 0..15), verdict for verdict and
+             against the host;
+ 10. timing  each kernel's median time over runs of 10 launches back to
              back and each plain version's median time per call (CUDA
              events), with the bound the card could reach for the same
-             work; for K9 and K10 also their time launched through the C
-             function into preallocated outputs (raw_ms, no wrapper) and
-             hashlib's time on the host for the same messages.
+             work; for K9-K13 also their time launched through the C
+             function into preallocated outputs (raw_ms, no wrapper), for
+             K9 and K10 hashlib's time on the host for the same messages.
 The launch counters are reset before phase 2 and read after phase 4
 (the default engine: every one of K1-K4 must launch there, none of
 K5-K8), reset before and read after phase 5's path (its comparisons
 with the plain version excluded), and reset before and read after each
-configuration of phase 7, and reset before and read after phase 6's path
-(its host-hash comparisons excluded).
+configuration of phase 8, reset before and read after phase 6's path
+(its host-hash comparisons excluded), and reset before and read after
+phase 7's path (its host-wait and order checks excluded).
 Keys and messages come from a fixed seed; the RLC weights are drawn from
 `secrets`, as they are in use.
 """
@@ -136,12 +165,30 @@ KERNELS = {
                             "cometbft_tpu/ops/pallas_msm.py:360"),
     "sha512_blocks": ("sha2_kernels.cu", "cometbft_tpu/ops/sha2.py:210"),
     "sha256_blocks": ("sha2_kernels.cu", "cometbft_tpu/ops/sha2.py:78"),
+    "secp_q_tables": ("secp256k1_kernels.cu",
+                      "cometbft_tpu/ops/secp256k1.py:327"),
+    "secp_msm_verify": ("secp256k1_kernels.cu",
+                        "cometbft_tpu/ops/secp256k1.py:360"),
+    "secp_ladder": ("secp256k1_kernels.cu",
+                    "cometbft_tpu/ops/secp256k1.py:186"),
 }
 DEFAULT_KERNELS = {"ed25519_decompress", "ed25519_table17_neg",
                    "ed25519_msm_window_major", "ed25519_fold_verify"}
 # K8 runs K1-K4 per shard; its two entry points count their own calls
 K8 = ("ed25519_sharded_msm", "ed25519_rlc_verify_sharded")
 HASH_KERNELS = {"sha512_blocks", "sha256_blocks"}
+SECP_KERNELS = ("secp_q_tables", "secp_msm_verify", "secp_ladder")
+SECP_COMMIT_HEIGHT = 7
+SECP_BATCH = 4096              # bench.py's bench_secp fixture
+SECP_KEYS = 128                # keys of each type, reused as bench.py does
+MIXED_ED, MIXED_SECP = 9000, 1000   # bench.py's bench_mixed fixture
+# the mixed commit's ed25519 part, one bad signature among 9,000 keys
+# the A-table cache has not seen: the whole RLC program (K1 and K2 on
+# the A and R sides, K3 on each side, one K4), then the per-signature
+# localization's one K1 over A || R
+MIXED_ED_LAUNCHES = {"ed25519_decompress": 3, "ed25519_table17_neg": 2,
+                     "ed25519_msm_window_major": 2, "ed25519_fold_verify": 1}
+SECP_ABSENT = N_VALS - (2 * N_VALS // 3 + 1)   # 49 absent of each window commit
 N_VALSET = 10_000              # ValidatorSet.hash(): upstream's largest sets
 MESH_SHARDS = (1, 2, 4)
 NVLINK_BYTES_PER_S = 450e9     # one direction, H100 SXM data sheet
@@ -192,6 +239,26 @@ TABLE = MUL + 15 * 8 * MUL
 # 1 + 1), schedule step 10 (4 + 4 + 2), final adds 8.
 SHA512_BLOCK_OPS = 80 * 28 + 64 * 20 + 8 * 2        # 3,536
 SHA256_BLOCK_OPS = 64 * 14 + 48 * 10 + 8            # 1,384
+# secp256k1 (K11-K13): field products only, each priced at the cheapest
+# 256-bit product on sm_90, an 8 x 8 schoolbook of 32-bit limbs with
+# IMAD.WIDE.U32 (64 multiply-adds; a squaring 36: 8 squares and 28 cross
+# products, doubled by a shift), plus the fold of the high half through
+# 2^256 = 2^32 + 977 (8 multiply-adds by 977, 2 for the carry word's
+# second fold).  Not the 22 x 22 = 484 of the kernels' 12-bit layout.
+M256, S256 = 64 + 10, 36 + 10
+JDBL = 2 * M256 + 5 * S256           # dbl-2009-l (a = 0)
+JADD = 11 * M256 + 5 * S256          # add-2007-bl
+JMADD = 7 * M256 + 4 * S256          # madd-2007-bl (Z2 = 1)
+INV = 255 * S256 + 15 * M256         # an addition chain for p - 2
+# per key: 52 windows of 5 doublings, then a doubling and 15 adds each
+K11_KEY = 52 * 5 * JDBL + 52 * (JDBL + 15 * JADD)
+# per signature: 32 mixed adds from the G table and the 2^256 G
+# correction, 52 adds from the key's table and the 2^260 Q and -S
+# corrections, the epilogue's Z^2, r Z^2 and (r + n) Z^2
+K12_SIG = 33 * JMADD + 54 * JADD + S256 + 2 * M256
+# per signature: the 16-row Q table (a doubling, 13 adds), 64 windows of
+# 4 doublings and 2 adds, the inversion, Z^2 and X / Z^2
+K13_SIG = JDBL + 13 * JADD + 64 * (4 * JDBL + 2 * JADD) + INV + S256 + M256
 
 
 # -- host fixtures (pure Python, several processes) --------------------------
@@ -268,7 +335,7 @@ def main() -> int:
     torch.cuda.set_device(0)
     state = {}
     phases = [phase_build, phase_fixtures, phase_commit, phase_window,
-              phase_batch, phase_mesh, phase_hash, phase_engines,
+              phase_batch, phase_mesh, phase_hash, phase_secp, phase_engines,
               phase_kernels, phase_timing]
     ctx = mp.get_context("spawn")
     with ctx.Pool(os.cpu_count() or 1) as pool:
@@ -312,14 +379,15 @@ def phase_build(state, torch):
     clock = nvidia_smi("clocks.max.sm").split()[0]
     state["sm_clock_hz"] = float(clock) * 1e6
     state["card"] = card
+    state["ptxas"] = ptxas
     return {"card": card, "build_seconds": time.perf_counter() - t0,
             "sources": sources, "max_sm_clock_mhz": float(clock),
             "ptxas": ptxas}
 
 
 def _ptxas(log: str) -> dict:
-    """{kernel or device function: {"registers", "spill_stores",
-    "spill_loads"}} from nvcc -Xptxas -v output (a kernel's name led by
+    """{kernel or device function: {"registers", "stack_frame",
+    "spill_stores", "spill_loads"}} from nvcc -Xptxas -v output (a kernel's name led by
     its identifier, a device function's mangled name as it is)."""
     import re
 
@@ -337,11 +405,12 @@ def _ptxas(log: str) -> dict:
             cur = m.group(1)
             out.setdefault(cur, {})
             continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      ln)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
         if m and cur is not None:
-            out[cur].update(spill_stores=int(m.group(1)),
-                            spill_loads=int(m.group(2)))
+            out[cur].update(stack_frame=int(m.group(1)),
+                            spill_stores=int(m.group(2)),
+                            spill_loads=int(m.group(3)))
             continue
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
@@ -413,8 +482,11 @@ def phase_fixtures(state, torch):
 
 def _kernels():
     from cometbft_tpu_torch.ops import cuda_decompress, cuda_msm, msm_shard
-    from cometbft_tpu_torch.ops import sha2
-    return {"sha512_blocks": sha2.sha512_blocks,
+    from cometbft_tpu_torch.ops import cuda_secp, sha2
+    return {"secp_q_tables": cuda_secp.q_msm_tables,
+            "secp_msm_verify": cuda_secp.msm_verify,
+            "secp_ladder": cuda_secp.verify_ladder,
+            "sha512_blocks": sha2.sha512_blocks,
             "sha256_blocks": sha2.sha256_blocks,
             "ed25519_sharded_msm": msm_shard.sharded_msm,
             "ed25519_rlc_verify_sharded": msm_shard.rlc_verify_sharded,
@@ -1257,7 +1329,394 @@ def phase_hash(state, torch):
             "launches": state["hash_launches"]}
 
 
-# -- phase 7: the engine configurations --------------------------------------
+# -- phase 7: secp256k1 ------------------------------------------------------
+
+def _secp_pubkeys(seeds):
+    sys.path.insert(0, str(ROOT))
+    from cometbft_tpu_torch.crypto import secp256k1 as sk
+    return [sk.PrivKey.generate(s).pub_key().bytes() for s in seeds]
+
+
+def _secp_sign(jobs):
+    sys.path.insert(0, str(ROOT))
+    from cometbft_tpu_torch.crypto import secp256k1 as sk
+    return [sk.PrivKey.generate(seed).sign(msg) for seed, msg in jobs]
+
+
+def _secp_verify(jobs):
+    """The host oracle: crypto/secp256k1._verify_py behind the lower-S
+    parse and the key decompression."""
+    sys.path.insert(0, str(ROOT))
+    from cometbft_tpu_torch.crypto import secp256k1 as sk
+    return [len(pk) == sk.PUBKEY_SIZE and sk.PubKey(pk).verify_signature(m, s)
+            for pk, m, s in jobs]
+
+
+def _secp_oracle(state, items):
+    """_verify_py of each (pubkey, msg, sig), in the pool, once a run."""
+    known = state.setdefault("secp_oracle", {})
+    todo = sorted({t for t in zip(*items) if t not in known})
+    known.update(zip(todo, _pool_map(state["pool"], _secp_verify, todo)))
+    return [known[t] for t in zip(*items)]
+
+
+def _secp_present(h_idx, i):
+    """Window height h_idx leaves SECP_ABSENT validators absent, a block
+    that moves with the height, so the window's commits cover every key."""
+    return (i - h_idx * SECP_ABSENT) % N_VALS >= SECP_ABSENT
+
+
+def _bench_secp_seed(i, fill):
+    """bench.py's secp256k1 key seeds: bytes([i & 0xFF, i >> 8] + [fill] * 30)."""
+    return bytes([i & 0xFF, i >> 8] + [fill] * 30)
+
+
+def _secp_fixtures(state):
+    """The secp phase's keys and signatures, signed in the pool: a
+    150-validator all-secp256k1 set, its commit (height 7, all present)
+    and a window of 48 commits (each with 49 validators absent, the
+    absent block moving, so the window covers all 150 keys); bench.py's
+    batch (4,096 signatures over 128 keys) and mixed commit (9,000
+    ed25519 + 1,000 secp256k1 signatures, 128 keys of each type)."""
+    from cometbft_tpu_torch.crypto import ed25519 as ed
+    from cometbft_tpu_torch.crypto import secp256k1 as sk
+    from cometbft_tpu_torch.types import block, canonical
+    from cometbft_tpu_torch.types.timestamp import Timestamp
+    from cometbft_tpu_torch.types.validator_set import Validator, ValidatorSet
+
+    pool = state["pool"]
+    t0 = time.perf_counter()
+    seeds = [_seed("secp validator", i) for i in range(N_VALS)]
+    pubs = _pool_map(pool, _secp_pubkeys, seeds)
+    vals = ValidatorSet([Validator(sk.PubKey(p), 10) for p in pubs])
+    seed_of = {sk.PubKey(p).address(): s for p, s in zip(pubs, seeds)}
+    heights = [SECP_COMMIT_HEIGHT] + [2000 + h for h in range(WINDOW)]
+    rows, jobs = {}, []
+    for h in heights:
+        bid = block.BlockID(_seed("secp block", h), block.PartSetHeader(
+            1, _seed("secp parts", h)))
+        rows[h] = (bid, [])
+        for i, v in enumerate(vals.validators):
+            if h != SECP_COMMIT_HEIGHT and not _secp_present(h - 2000, i):
+                rows[h][1].append(None)
+                continue
+            ts = Timestamp(1_700_000_000 + h, 1000 * i + 9)
+            sb = canonical.vote_sign_bytes(CHAIN_ID, canonical.PRECOMMIT, h, 0,
+                                           bid, ts)
+            rows[h][1].append((v.address, ts))
+            jobs.append((seed_of[v.address], sb))
+    batch_seeds = [_bench_secp_seed(i, 11) for i in range(SECP_KEYS)]
+    batch_msgs = [i.to_bytes(8, "little") * 8 for i in range(SECP_BATCH)]
+    mixed_ed_seeds = [bytes([i + 1]) * 32 for i in range(SECP_KEYS)]
+    mixed_sk_seeds = [_bench_secp_seed(i, 7) for i in range(SECP_KEYS)]
+    mixed_msgs = [b"mixed-commit-" + i.to_bytes(8, "little") * 4
+                  for i in range(MIXED_ED + MIXED_SECP)]
+    sk_jobs = jobs + [(batch_seeds[i % SECP_KEYS], m)
+                      for i, m in enumerate(batch_msgs)] + \
+        [(mixed_sk_seeds[i % SECP_KEYS], mixed_msgs[MIXED_ED + i])
+         for i in range(MIXED_SECP)]
+    ed_jobs = [(mixed_ed_seeds[i % SECP_KEYS], mixed_msgs[i])
+               for i in range(MIXED_ED)]
+    sk_sigs = iter(_pool_map(pool, _secp_sign, sk_jobs))
+    ed_sigs = _pool_map(pool, _sign, ed_jobs)
+    batch_pubs = _pool_map(pool, _secp_pubkeys, batch_seeds)
+    mixed_sk_pubs = _pool_map(pool, _secp_pubkeys, mixed_sk_seeds)
+    mixed_ed_pubs = _pool_map(pool, _pubkeys, mixed_ed_seeds)
+    commits = {}
+    for h in heights:
+        bid, slots = rows[h]
+        cs = [block.CommitSig.absent() if s is None else
+              block.CommitSig(block.BLOCK_ID_FLAG_COMMIT, s[0], s[1],
+                              next(sk_sigs)) for s in slots]
+        commits[h] = (bid, block.Commit(h, 0, bid, cs))
+    batch = ([batch_pubs[i % SECP_KEYS] for i in range(SECP_BATCH)],
+             batch_msgs, [next(sk_sigs) for _ in range(SECP_BATCH)])
+    mixed = [(ed.PubKey(mixed_ed_pubs[i % SECP_KEYS]), mixed_msgs[i],
+              ed_sigs[i]) for i in range(MIXED_ED)]
+    mixed += [(sk.PubKey(mixed_sk_pubs[i % SECP_KEYS]),
+               mixed_msgs[MIXED_ED + i], next(sk_sigs))
+              for i in range(MIXED_SECP)]
+    state["secp"] = {"vals": vals, "commits": commits,
+                     "heights": heights[1:], "batch": batch, "mixed": mixed}
+    return {"secp_signatures": len(sk_jobs), "ed25519_signatures":
+            len(ed_jobs), "signing_seconds": time.perf_counter() - t0}
+
+
+def _secp_hostile(batch):
+    """The 4,096 batch with one signature of each hostile class, all past
+    the first 128 lanes so that the key set keeps its order: r = 0, s >= n,
+    the high-s twin of a valid signature, a key that fails to decompress
+    (x >= p), a tampered message, and r + n < p (r = 5: rn_valid set, the
+    verdict false)."""
+    from cometbft_tpu_torch.crypto import secp256k1 as sk
+
+    pubs, msgs, sigs = (list(x) for x in batch)
+    i = [SECP_BATCH // 8 * k + 1 for k in range(1, 7)]
+    sigs[i[0]] = b"\x00" * 32 + sigs[i[0]][32:]
+    sigs[i[1]] = sigs[i[1]][:32] + (sk.N + 3).to_bytes(32, "big")
+    s = int.from_bytes(sigs[i[2]][32:], "big")
+    sigs[i[2]] = sigs[i[2]][:32] + (sk.N - s).to_bytes(32, "big")
+    pubs[i[3]] = b"\x03" + (sk.P + 2).to_bytes(33, "big")[1:]
+    msgs[i[4]] = msgs[i[4]] + b"?"
+    sigs[i[5]] = (5).to_bytes(32, "big") + sigs[i[5]][32:]
+    check(5 + sk.N < sk.P, "r + n < p case")
+    return (pubs, msgs, sigs), i
+
+
+def _secp_verifier(state, items, n_hint=None):
+    """create_batch_verifier("secp256k1") on the card over `items`: (ok,
+    verdicts, seconds)."""
+    from cometbft_tpu_torch.crypto import batch as cb
+
+    bv = cb.create_batch_verifier("secp256k1", n_hint=n_hint or len(items[0]),
+                                  device=DEVICE)
+    for p, m, s in zip(*items):
+        bv.add(p, m, s)
+    t0 = time.perf_counter()
+    ok, verdicts = bv.verify()
+    return ok, verdicts, time.perf_counter() - t0
+
+
+def _secp_split_order(torch, items, devices):
+    """crypto/mesh.split_secp_verify over `devices` under torch's sync
+    debug mode: the host waits counted before each chunk's launch (all
+    0: every chunk launched before the first read) and in the whole call
+    (one read per chunk)."""
+    import warnings
+
+    from cometbft_tpu_torch.crypto import mesh
+    from cometbft_tpu_torch.crypto import secp256k1 as sk
+
+    sync = _tool("host_syncs").SYNC_WARNING
+    real, marks = sk.verify_msm_async, []
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+
+        def spy(*a, **k):
+            marks.append(sum(sync in str(w.message) for w in caught))
+            return real(*a, **k)
+        sk.verify_msm_async = spy
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            verdicts = mesh.split_secp_verify(*items, devices)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            sk.verify_msm_async = real
+    torch.cuda.synchronize()
+    return marks, sum(sync in str(w.message) for w in caught), verdicts
+
+
+def phase_secp(state, torch):
+    """The secp256k1 path on the card, with the counts set to 0 just
+    before it and read just after (a warm-up call on a small batch comes
+    first, outside the count: the first call builds the static G table
+    on the host).  Each step's launches are exact: the MSM program is
+    one K12 a call plus K11 on a key-table miss, the ladder one K13.
+    Steps: the 150-validator commit (accept, one bad signature named by
+    index); the window twice (the second a QTableCache hit) and with one
+    bad signature named by height; the 4,096 batch clean and hostile on
+    the MSM program and on the ladder (COMETBFT_TPU_SECP_MSM=0); the mixed
+    commit (9,000 ed25519 + 1,000 secp256k1, one bad signature of each)
+    through MixedBatchVerifier; the split over two devices.  Every verdict
+    is held against _verify_py (ed25519: ed25519_ref.verify).  Then,
+    outside the count: the host waits inside verify_msm_async (none
+    allowed), the split's launch order, and the host packing time."""
+    import numpy as np
+
+    from cometbft_tpu_torch.crypto import batch as cb
+    from cometbft_tpu_torch.crypto import secp256k1 as sk
+    from cometbft_tpu_torch.types import validation as val
+
+    fixtures = _secp_fixtures(state)
+    sp = state["secp"]
+    vals = sp["vals"]
+    warm = tuple(x[:SECP_KEYS] for x in sp["batch"])
+    t0 = time.perf_counter()
+    check(all(sk.verify_msm_batch(*warm, device=DEVICE)), "warm-up rejected")
+    warm_s = time.perf_counter() - t0
+    sk._Q_CACHE = cache = sk.QTableCache()
+    _zero_counts()                          # the secp path starts here
+    t_path = time.perf_counter()
+    steps = []
+
+    def step(label, fn, want):
+        before, h0, m0 = _counts(), cache.hits, cache.misses
+        t0 = time.perf_counter()
+        out = fn()
+        rec = {"step": label, "seconds": time.perf_counter() - t0,
+               "launches": _launched(before, _counts()),
+               "table_hits": cache.hits - h0,
+               "table_misses": cache.misses - m0}
+        check(rec["launches"] == want(rec), f"secp {label} launched "
+              f"{rec['launches']}, not {want(rec)}")
+        steps.append(rec)
+        return out
+
+    def msm(rec):
+        return {"secp_msm_verify": 1,
+                **({"secp_q_tables": rec["table_misses"]}
+                   if rec["table_misses"] else {})}
+
+    # commit: 101 signatures (K = 128) at the device threshold of 96
+    bid, commit = sp["commits"][SECP_COMMIT_HEIGHT]
+    step("commit accept", lambda: val.verify_commit_light(
+        CHAIN_ID, vals, bid, SECP_COMMIT_HEIGHT, commit, device=DEVICE), msm)
+    bad_idx = N_VALS // 5
+    tampered, s = _with_sig(commit, bad_idx, 11, 0x40)
+
+    def commit_reject():
+        try:
+            val.verify_commit_light(CHAIN_ID, vals, bid, SECP_COMMIT_HEIGHT,
+                                    tampered, device=DEVICE)
+            raise PhaseError("tampered secp256k1 commit accepted")
+        except val.ErrInvalidSignature as e:
+            check(str(e) == f"wrong signature (#{bad_idx}): {s.hex()}",
+                  f"wrong message {e}")
+    step("commit reject", commit_reject, msm)
+
+    # window: 48 x 101 signatures over all 150 keys (K = 192)
+    commits = [(h, sp["commits"][h]) for h in sp["heights"]]
+
+    def window(cs):
+        batch = val.DeferredSigBatch()
+        for h, (b, c) in cs:
+            val.verify_commit_light(CHAIN_ID, vals, b, h, c, defer_to=batch,
+                                    device=DEVICE)
+        n = batch.count()
+        batch.verify(device=DEVICE)
+        return n
+    n_window = step("window", lambda: window(commits), msm)
+    step("window again", lambda: window(commits), msm)
+    check([r["table_misses"] for r in steps[-2:]] == [1, 0] and
+          steps[-1]["table_hits"] == 1, "the second window missed the "
+          f"QTableCache: {steps[-2:]}")
+    bad_h = sp["heights"][len(sp["heights"]) // 2]
+    bad_v = [i for i in range(N_VALS) if _secp_present(bad_h - 2000, i)][4]
+    bad_commit, s_bad = _with_sig(sp["commits"][bad_h][1], bad_v, 12, 0x01)
+    bad = [(h, (b, bad_commit if h == bad_h else c)) for h, (b, c) in commits]
+
+    def window_reject():
+        try:
+            window(bad)
+            raise PhaseError("bad secp256k1 window accepted")
+        except val.ErrInvalidSignature as e:
+            check(getattr(e, "failed_ctx", None) == bad_h and str(e) ==
+                  f"wrong signature in commit at height {bad_h}: "
+                  f"{s_bad.hex()}", f"blamed {getattr(e, 'failed_ctx', None)}:"
+                  f" {e}")
+    step("window reject", window_reject, msm)
+
+    # the 4,096 batch on both programs
+    hostile, bad_i = _secp_hostile(sp["batch"])
+    want_clean = _secp_oracle(state, sp["batch"])
+    want_hostile = _secp_oracle(state, hostile)
+    check(all(want_clean) and [i for i, v in enumerate(want_hostile)
+                               if not v] == bad_i, "secp oracle")
+    routes = {}
+    for program, env in (("msm", "1"), ("ladder", "0")):
+        old = os.environ.get("COMETBFT_TPU_SECP_MSM")
+        os.environ["COMETBFT_TPU_SECP_MSM"] = env
+        want = msm if program == "msm" else (
+            lambda rec: {"secp_ladder": 1})
+        try:
+            for label, items, oracle in (("clean", sp["batch"], want_clean),
+                                         ("hostile", hostile, want_hostile)):
+                ok, verdicts, secs = step(
+                    f"batch {label} {program}",
+                    lambda items=items: _secp_verifier(state, items), want)
+                differ = [i for i, (a, b) in enumerate(zip(verdicts, oracle))
+                          if a != b]
+                check(not differ and ok == all(oracle), f"secp batch {label} "
+                      f"{program}: verdicts differ from _verify_py at "
+                      f"{differ[:8]}")
+                routes[f"{label}_{program}"] = {
+                    "seconds": secs, "sigs_per_s": SECP_BATCH / secs,
+                    "rejected": [i for i, v in enumerate(verdicts) if not v]}
+        finally:
+            if old is None:
+                os.environ.pop("COMETBFT_TPU_SECP_MSM", None)
+            else:
+                os.environ["COMETBFT_TPU_SECP_MSM"] = old
+
+    # mixed: 9,000 ed25519 + 1,000 secp256k1, one bad of each
+    items = list(sp["mixed"])
+    bad_m = (MIXED_ED // 3, MIXED_ED + MIXED_SECP // 2)
+    for i in bad_m:
+        pk, m, s = items[i]
+        items[i] = (pk, m + b"!", s)
+
+    def mixed():
+        mv = cb.MixedBatchVerifier(device=DEVICE)
+        for it in items:
+            mv.add(*it)
+        return mv.verify()
+    ok, verdicts = step("mixed", mixed,
+                        lambda rec: {**msm(rec), **MIXED_ED_LAUNCHES})
+    want_ed = _oracle(state, tuple(zip(*[(p.bytes(), m, s)
+                                         for p, m, s in items[:MIXED_ED]])))
+    want_sk = _secp_oracle(state, tuple(zip(*[(p.bytes(), m, s)
+                                              for p, m, s in
+                                              items[MIXED_ED:]])))
+    check(verdicts == want_ed + want_sk and not ok and
+          [i for i, v in enumerate(verdicts) if not v] == list(bad_m),
+          "mixed verdicts differ from the oracles")
+
+    # the split over two devices: every chunk's verdicts, in order
+    devices = _mesh_devices(torch, 2)
+    split_items = hostile
+    from cometbft_tpu_torch.crypto import mesh
+    split = step("split", lambda: mesh.split_secp_verify(*split_items,
+                                                         devices), lambda rec: {
+        "secp_msm_verify": 2,
+        **({"secp_q_tables": rec["table_misses"]}
+           if rec["table_misses"] else {})})
+    check(split == want_hostile, "split verdicts differ from _verify_py")
+    path_s = time.perf_counter() - t_path
+    state["secp_launches"] = _counts()
+    for name in SECP_KERNELS:
+        check(state["secp_launches"][name] > 0, f"the secp path launched no "
+              f"{name}")
+
+    # outside the count: host waits, the split's order, host packing
+    syncs = {}
+    if DEVICE == "cuda":
+        count_waits = _tool("host_syncs").count_waits
+        card = torch.device(DEVICE)
+        n_copy, _ = count_waits(torch, lambda: torch.as_tensor(
+            np.arange(4), device=card))
+        n_async, (verdict, valid, n) = count_waits(
+            torch, sk.verify_msm_async, *hostile)
+        check(n_async == 0 and n_copy == 1 and
+              (verdict.cpu().numpy() & valid)[:n].tolist() == want_hostile,
+              f"verify_msm_async made the host wait {n_async} times "
+              f"(control {n_copy})")
+        marks, reads, verdicts = _secp_split_order(torch, hostile, devices)
+        check(marks == [0] * len(devices) and reads == len(devices) and
+              verdicts == want_hostile, "the split read a verdict before "
+              f"its last launch: waits before each launch {marks}, {reads} "
+              "in all")
+        syncs = {"verify_msm_async": n_async, "control_one_copy": n_copy,
+                 "split_waits_before_each_launch": marks,
+                 "split_reads": reads}
+    t0 = time.perf_counter()
+    sk.pack_msm_batch(*sp["batch"], SECP_BATCH)
+    pack_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sk.pack_batch(*sp["batch"], SECP_BATCH)
+    ladder_pack_s = time.perf_counter() - t0
+    for name, fn in _kernels().items():  # the checks' launches do not count
+        fn.launches = state["secp_launches"][name]
+    return {"fixtures": fixtures, "warm_up_seconds": warm_s,
+            "path_seconds": path_s, "window_signatures": n_window,
+            "steps": steps, "batch": routes,
+            "host_syncs": syncs,
+            "host_pack_seconds": {"pack_msm_batch": pack_s,
+                                  "pack_batch": ladder_pack_s},
+            "launches": state["secp_launches"]}
+
+
+# -- phase 8: the engine configurations --------------------------------------
 
 def phase_engines(state, torch):
     """Each configuration drives the commit, the window and (where
@@ -1306,7 +1765,7 @@ def phase_engines(state, torch):
     return {"configurations": rows}
 
 
-# -- phase 8: kernel vs plain ------------------------------------------------
+# -- phase 9: kernel vs plain ------------------------------------------------
 
 def _hostile_words(state, torch):
     """K1 input at W = 8192: the phase-4 public keys (two of them
@@ -1558,6 +2017,7 @@ def phase_kernels(state, torch):
         k4_case(label, want, pa, pr)
     cases["ed25519_fold_verify"] = k4
     cases["sha512_blocks"], cases["sha256_blocks"] = _sha_cases(state, torch)
+    cases.update(_secp_cases(state, torch))
     for name, fn in _kernels().items():  # comparison launches do not count
         fn.launches = saved[name]
     state["cases"] = cases
@@ -1639,7 +2099,226 @@ def _sha_cases(state, torch):
     return k9, k10
 
 
-# -- phase 9: timing ---------------------------------------------------------
+def _secp_window_items(state, commits):
+    """The secp window's (pubkeys, msgs, sigs) as DeferredSigBatch
+    collects them."""
+    from cometbft_tpu_torch.types import validation as val
+
+    sp = state["secp"]
+    batch = val.DeferredSigBatch()
+    for h, (bid, commit) in commits:
+        val.verify_commit_light(CHAIN_ID, sp["vals"], bid, h, commit,
+                                defer_to=batch, device=DEVICE)
+    ents = batch._entries
+    return ([e[2].bytes() for e in ents], [e[3] for e in ents],
+            [e[4] for e in ents])
+
+
+def _nibbles_msb(v: int):
+    return [(v >> (4 * (63 - j))) & 0xF for j in range(64)]
+
+
+def _ladder_edges(torch):
+    """K13 inputs at the hostile edges of its exact additions, 16 lanes,
+    and the verdict each must give (None: held against the plain version
+    only).  Lane 0: Q = G, u1 = u2, so the first nonzero window adds
+    k G + k G (the doubling branch); lane 1: Q = -G, u1 = u2 (P + (-P),
+    the cancelling branch, every window); lane 2: u1 = u2 = 0 (both at
+    infinity throughout); lane 3: u1 = 0 (infinity + Q entries); lane 4:
+    u2 = 0; lane 5: nibbles outside 0..15 (row 0 taken); lane 6: Q = G,
+    u1 + u2 = n (the sum at infinity); lane 7: x in the r + n slot; lanes
+    8-15 generic."""
+    import random
+
+    import numpy as np
+
+    from cometbft_tpu_torch import convert
+    from cometbft_tpu_torch.crypto import secp256k1 as sk
+    from cometbft_tpu_torch.ops import fe_secp as fs
+
+    rng = random.Random(SEED)
+    g = (sk.GX, sk.GY)
+    key = sk._jaffine(sk._jmul(rng.randrange(1, sk.N), sk._G))
+    lanes = []
+    for lane in range(16):
+        k = rng.randrange(1, sk.N)
+        q, u1, u2 = key, k, rng.randrange(1, sk.N)
+        if lane == 0:
+            q, u2 = g, k
+        elif lane == 1:
+            q, u2 = (sk.GX, sk.P - sk.GY), k
+        elif lane == 2:
+            u1 = u2 = 0
+        elif lane == 3:
+            u1 = 0
+        elif lane == 4:
+            u2 = 0
+        elif lane == 6:
+            q, u2 = g, sk.N - k
+        lanes.append((q, u1, u2))
+    qx = np.zeros((16, fs.NLIMBS), np.int32)
+    qy = np.zeros_like(qx)
+    u1n = np.zeros((16, 64), np.int32)
+    u2n = np.zeros_like(u1n)
+    r_l = np.zeros_like(qx)
+    rn_l = np.zeros_like(qx)
+    rn_ok = np.zeros(16, bool)
+    want = []
+    for i, (q, u1, u2) in enumerate(lanes):
+        qx[i], qy[i] = fs.int_to_limbs(q[0]), fs.int_to_limbs(q[1])
+        u1n[i], u2n[i] = _nibbles_msb(u1), _nibbles_msb(u2)
+        pt = sk._jaffine(sk._jadd(sk._jmul(u1, sk._G),
+                                  sk._jmul(u2, q + (1,))))
+        x = 1 if pt is None else pt[0]
+        r_l[i] = fs.int_to_limbs(x)
+        if i == 7:
+            r_l[i], rn_l[i], rn_ok[i] = fs.int_to_limbs(x + 1), \
+                fs.int_to_limbs(x), True
+        want.append(pt is not None)
+    u1n[5] = [rng.choice((-3, -1, 16, 19, rng.randrange(16)))
+              for _ in range(64)]
+    want[5] = None
+    check(want[:8] == [True, False, False, True, True, None, False, True],
+          f"ladder edge oracle {want[:8]}")
+    args = convert.secp_batch_from_numpy(
+        tuple(np.ascontiguousarray(a.T) for a in (qx, qy, u1n, u2n, r_l,
+                                                   rn_l)) + (rn_ok,), DEVICE)
+    return args, want
+
+
+def _r_in_rn_slot(pk, want):
+    """A copy of a pack_msm_batch dict whose first four lanes carry a
+    wrong r (r + 1) and the true r in the r + n slot, rn_valid set on
+    lanes 0 and 2 alone: X == (r+n) Z^2 must accept lanes 0 and 2 and
+    reject lanes 1 and 3.  Returns (pack, the verdicts it must give)."""
+    from cometbft_tpu_torch.ops import fe_secp as fs
+
+    pk = dict(pk, r_limbs=pk["r_limbs"].copy(),
+              rn_limbs=pk["rn_limbs"].copy(), rn_valid=pk["rn_valid"].copy())
+    want = list(want)
+    check(all(want[:4]), "the r + n lanes must start from valid signatures")
+    for lane in range(4):
+        r = fs.limbs_to_int(pk["r_limbs"][:, lane])
+        pk["rn_limbs"][:, lane] = fs.int_to_limbs(r)
+        pk["r_limbs"][:, lane] = fs.int_to_limbs(r + 1)
+        pk["rn_valid"][lane] = want[lane] = lane % 2 == 0
+    return pk, want
+
+
+def _secp_cases(state, torch):
+    """K11, K12 and K13 against their plain versions on the card: K11 at
+    K = 4, 128 (commit, batch) and 192 (window), equal limb for limb;
+    K12 at the commit's, window's and hostile batch's packs and at the
+    commit's with r moved into the r + n slot (_r_in_rn_slot), K13 at
+    the hostile batch and the edge lanes, verdict for verdict, and
+    against _verify_py."""
+    import numpy as np
+
+    from cometbft_tpu_torch import convert
+    from cometbft_tpu_torch.crypto import secp256k1 as sk
+    from cometbft_tpu_torch.ops import cuda_secp as cs
+    from cometbft_tpu_torch.ops import ed25519 as dev
+    from cometbft_tpu_torch.ops import secp256k1 as sk_ops
+
+    sp = state["secp"]
+    hostile, _ = _secp_hostile(sp["batch"])
+    commit = _secp_window_items(state, [(SECP_COMMIT_HEIGHT,
+                                         sp["commits"][SECP_COMMIT_HEIGHT])])
+    window = _secp_window_items(state, [(h, sp["commits"][h])
+                                        for h in sp["heights"]])
+    k11, k12, k13 = [], [], []
+    for label, items in (("keys 4", tuple(x[:2] for x in sp["batch"])),
+                         ("commit", commit), ("window", window),
+                         ("batch", hostile)):
+        n = len(items[0])
+        pk = sk.pack_msm_batch(*items, dev.bucket_size(n))
+        kx, ky = (convert.to_device_async(pk[k], np.int32, DEVICE)
+                  for k in ("keys_x", "keys_y"))
+        qt, qc = cs.q_msm_tables(kx, ky)
+        pt, pc = sk_ops.q_msm_tables_kernel_plain(kx, ky)
+        err = max(_exact(qt, pt), _exact(qc, pc))
+        nk = int(kx.shape[-1])
+        check(err == 0, f"K11 {label} K = {nk} differs from plain by {err}")
+        k11.append({"shape": [nk], "max_abs_err": err, "args": (kx, ky),
+                    "phase": label})
+        if label == "keys 4":
+            continue
+        runs = [(label, pk, _secp_oracle(state, items))]
+        if label == "commit":
+            runs.append(("commit r + n", *_r_in_rn_slot(pk, runs[0][2])))
+        for run, p, want in runs:
+            args = (qt, qc) + convert.secp_msm_from_numpy(p, DEVICE)
+            got = cs.msm_verify(*args)
+            plain = sk_ops.msm_verify_kernel_plain(*args)
+            err = int((got != plain).sum())
+            verdicts = (got.cpu().numpy() & p["valid"])[:n].tolist()
+            check(err == 0 and verdicts == want, f"K12 {run}: {err} "
+                  "verdicts differ from plain, or from _verify_py")
+            k12.append({"shape": [int(got.shape[0]), nk],
+                        "max_abs_err": err, "args": args, "phase": run})
+    packed = sk.pack_batch(*hostile, SECP_BATCH)
+    for label, (args, want) in (
+            ("batch", (convert.secp_batch_from_numpy(packed[:-1], DEVICE),
+                       _secp_oracle(state, hostile))),
+            ("edges", _ladder_edges(torch))):
+        got = cs.verify_ladder(*args)
+        plain = sk_ops.verify_kernel_plain(*args)
+        err = int((got != plain).sum())
+        verdicts = got.cpu().numpy()
+        if label == "batch":
+            verdicts = verdicts & packed[-1]
+        check(err == 0 and all(w is None or w == bool(v)
+                               for w, v in zip(want, verdicts)),
+              f"K13 {label}: {err} verdicts differ from plain, or from the "
+              "host")
+        k13.append({"shape": [int(got.shape[0])], "max_abs_err": err,
+                    "args": args, "phase": label})
+    return {"secp_q_tables": k11, "secp_msm_verify": k12,
+            "secp_ladder": k13}
+
+
+def _raw_secp(torch, name, args):
+    """K11, K12 or K13 launched through its C function into preallocated
+    outputs: the kernel's time without the wrapper's checks."""
+    from cometbft_tpu_torch.ops import cuda_secp as cs
+    from cometbft_tpu_torch.ops import device as devmod
+    from cometbft_tpu_torch.ops import secp256k1 as sk
+
+    lib = cs._lib()
+    dev = args[0].device
+    stream = devmod.stream(args[0])
+    if name == "secp_q_tables":
+        nk = int(args[0].shape[-1])
+        outs = [torch.empty(s, dtype=torch.int32, device=dev) for s in (
+            (sk.MSM_NQ, 3, 22, nk), (sk.MSM_NQ, 16, 3, 22, nk), (3, 22, nk))]
+        ptrs = [devmod.ptr(t) for t in (*args, *outs)]
+
+        def launch():
+            devmod.check_launch(lib.secp_q_tables(ptrs[0], ptrs[1], nk,
+                                                  *ptrs[2:], stream), name)
+        return launch
+    out = torch.empty(args[2].shape[0] if name == "secp_msm_verify"
+                      else args[0].shape[-1], dtype=torch.bool, device=dev)
+    gtab, gcorr, ladder_gtab = sk.g_tables_on(dev)
+    if name == "secp_msm_verify":
+        ptrs = [devmod.ptr(t) for t in (*args, gtab, gcorr)]
+        nb, nk = int(out.shape[0]), int(args[0].shape[-1])
+
+        def launch():
+            devmod.check_launch(lib.secp_msm_verify(*ptrs, nb, nk,
+                                                    devmod.ptr(out), stream),
+                                name)
+        return launch
+    ptrs = [devmod.ptr(t) for t in (*args, ladder_gtab)]
+    nb = int(out.shape[0])
+
+    def launch():
+        devmod.check_launch(lib.secp_ladder(*ptrs, nb, devmod.ptr(out),
+                                            stream), name)
+    return launch
+
+
+# -- phase 10: timing --------------------------------------------------------
 
 def _time(torch, fn, args, reps, inner=1):
     """Median over reps of the CUDA-event time of `inner` calls made back
@@ -1666,7 +2345,8 @@ def _work(name, case):
     """(int32 multiply-adds, bytes) the function needs on these inputs:
     field products only; each input read once, each output written
     once.  An MSM over all windows counts its whole table; one window of
-    select-tree needs one table row per lane.  K3 and K5 sum each
+    select-tree needs one table row per lane; K12 counts the distinct
+    table rows its lanes gather.  K3 and K5 sum each
     window's lanes into their partials' lane groups (K3's chunks, K5's
     32-lane blocks), then run one Horner chain per partial."""
     from cometbft_tpu_torch.ops import cuda_msm as cm
@@ -1699,6 +2379,31 @@ def _work(name, case):
         w, blk = case["args"][1].shape[-1], case["args"][3]
         blk, out_l, nblk = cm.loop_geometry(w, blk)
         return nblk * (blk - out_l) * ADD, w * (320 + 5) + nblk * out_l * 320
+    if name == "secp_q_tables":
+        nk = case["args"][0].shape[-1]
+        return nk * K11_KEY, nk * (2 * 88 + (52 * 16 + 1) * 264)
+    if name == "secp_msm_verify":
+        # the table rows this run's lanes gather, each once: distinct
+        # (window, row, key) of the key tables (264 bytes a Jacobian row)
+        # and their keys' corrections, distinct (window, row) of the G
+        # table (176 bytes an affine row); never more than the tables
+        qtab, gid, g_rows, q_rows = (case["args"][k] for k in (0, 2, 3, 5))
+        nb, nk = gid.shape[0], qtab.shape[-1]
+        slot = gid.long().clamp(0, nk - 1)
+        q_win = q_rows.new_tensor(range(q_rows.shape[0]))[:, None].long()
+        q_used = int(((q_win * 16 + q_rows.long().clamp(0, 15)) * nk
+                      + slot[None]).unique().numel())
+        g_win = g_rows.new_tensor(range(g_rows.shape[0]))[:, None].long()
+        g_used = int((g_win * 128 + g_rows.long().clamp(0, 127))
+                     .unique().numel())
+        keys = int(slot.unique().numel())
+        tables = (min(q_used, 52 * 16 * nk) * 264 + keys * 264
+                  + min(g_used, 32 * 128) * 176 + 176 + 264)
+        per_sig = 4 + 32 * 5 + 52 * 5 + 2 * 88 + 1 + 1
+        return nb * K12_SIG, tables + nb * per_sig
+    if name == "secp_ladder":
+        nb = case["args"][0].shape[-1]
+        return nb * K13_SIG, 16 * 264 + nb * (2 * 88 + 2 * 256 + 2 * 88 + 2)
     if name in HASH_KERNELS:
         blocks, nb = case["args"][0], case["args"][-1]
         used = int(nb.clamp(0, blocks.shape[1]).sum())
@@ -1779,9 +2484,20 @@ def _bound(state, ops, nbytes, bytes_per_s=HBM_BYTES_PER_S):
                                  else "bytes")
 
 
+def _ptxas_of(state, name):
+    """ptxas -v's registers and spills of the entry functions of a
+    secp256k1 kernel (K11 has two)."""
+    entries = {"secp_q_tables": ("q_bases_kernel", "q_rows_kernel"),
+               "secp_msm_verify": ("msm_verify_kernel",),
+               "secp_ladder": ("ladder_kernel",)}[name]
+    return {e: v for k, v in state["ptxas"].items() for e in entries
+            if e in k}
+
+
 def phase_timing(state, torch):
     from cometbft_tpu_torch.ops import cuda_decompress as cd
     from cometbft_tpu_torch.ops import cuda_msm as cm
+    from cometbft_tpu_torch.ops import secp256k1 as secp_ops
     from cometbft_tpu_torch.ops import sha2
 
     plain = {"sha512_blocks": sha2.sha512_blocks_plain,
@@ -1793,7 +2509,10 @@ def phase_timing(state, torch):
              "ed25519_msm_window_major_grouped":
                  cm.msm_window_major_grouped_plain,
              "ed25519_msm_window_loop": cm.msm_window_loop_plain,
-             "ed25519_select_tree": cm.select_tree_plain}
+             "ed25519_select_tree": cm.select_tree_plain,
+             "secp_q_tables": secp_ops.q_msm_tables_kernel_plain,
+             "secp_msm_verify": secp_ops.msm_verify_kernel_plain,
+             "secp_ladder": secp_ops.verify_kernel_plain}
     saved = _counts()
     sass = _sass_block_loops()
     rows = []
@@ -1802,11 +2521,17 @@ def phase_timing(state, torch):
         shapes = []
         for case in state["cases"][name]:
             ms = _time(torch, fn, case["args"], 7, inner=10)
-            plain_ms = _time(torch, plain[name], case["args"], 3)
+            # the secp plain versions take seconds a call (10^5 launches)
+            plain_ms = _time(torch, plain[name], case["args"],
+                             1 if name in SECP_KERNELS else 3)
             ops, nbytes = _work(name, case)
             bound_ms, bound_by = _bound(state, ops, nbytes)
             extra = {k: case[k] for k in ("group", "blk", "row", "zero_rows")
                      if k in case}
+            if name in SECP_KERNELS:
+                extra["raw_ms"] = _time(torch, _raw_secp(torch, name,
+                                                         case["args"]),
+                                        (), 7, inner=10)
             if name in HASH_KERNELS:
                 extra["raw_ms"] = _time(torch, _raw_sha(torch, name,
                                                         case["args"]),
@@ -1824,15 +2549,18 @@ def phase_timing(state, torch):
         by_path = {"main": state["main_launches"][name],
                    "mesh": state["mesh_launches"][name],
                    "hash": state["hash_launches"][name],
+                   "secp": state["secp_launches"][name],
                    **{cfg: c[name]
                       for cfg, c in state["engine_launches"].items()}}
         if name in DEFAULT_KERNELS:
             launches = by_path["main"]
         elif name in HASH_KERNELS:
             launches = by_path["hash"]
+        elif name in SECP_KERNELS:
+            launches = by_path["secp"]
         else:
             launches = sum(v for k, v in by_path.items()
-                           if k not in ("main", "mesh", "hash"))
+                           if k not in ("main", "mesh", "hash", "secp"))
         source, replaces = KERNELS[name]
         rows.append({"name": name, "route": "cuda", "source": CSRC + source,
                      "replaces": replaces, "launches": launches,
@@ -1842,6 +2570,13 @@ def phase_timing(state, torch):
                      "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
                      "library_ms": None, "matches_plain": True,
                      "shape": top["shape"], "shapes": shapes,
+                     **({"raw_ms": top["raw_ms"],
+                         "int32_madds_per_lane": {
+                             "secp_q_tables": K11_KEY,
+                             "secp_msm_verify": K12_SIG,
+                             "secp_ladder": K13_SIG}[name],
+                         "ptxas": _ptxas_of(state, name)}
+                        if name in SECP_KERNELS else {}),
                      **({"host_hashlib_ms": top["host_hashlib_ms"],
                          "min_ops_per_block": (
                              SHA512_BLOCK_OPS if name == "sha512_blocks"

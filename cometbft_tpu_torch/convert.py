@@ -1,11 +1,16 @@
 """State carried between the JAX package and the port.
 
 This system runs no model; its state is the packed batch (the numpy
-arrays of crypto/ed25519.pack_rlc and pack_batch, byte-identical in both
-packages) and a validator set's A-side window tables (ATableCache
-entries: (17, 4, 20, K) int32 plus an all-decompressed-ok flag).  These
-functions turn the JAX package's numpy forms into the port's tensors on
-a given device; uint32 words travel as their int32 bit patterns.
+arrays of crypto/ed25519.pack_rlc and pack_batch, and of
+crypto/secp256k1.pack_batch and pack_msm_batch, byte-identical in both
+packages), a validator set's A-side window tables (ATableCache entries:
+(17, 4, 20, K) int32 plus an all-decompressed-ok flag) and its
+secp256k1 key tables (QTableCache entries: (52, 16, 3, 22, K) and
+(3, 22, K) int32).  These functions turn the JAX package's numpy forms
+into the port's tensors on a given device; uint32 words travel as their
+int32 bit patterns.  The secp256k1 arrays reach a card from pinned host
+memory without waiting for its queue, so that a program launched on
+them makes the host wait for the card no time.
 """
 
 from __future__ import annotations
@@ -85,3 +90,43 @@ def batch_hash_from_numpy(a_words, r_words, s_limbs, blocks_hi, blocks_lo,
             words_from_numpy(blocks_hi, device),
             words_from_numpy(blocks_lo, device),
             _tensor(n_blocks, np.int32).to(device))
+
+
+def to_device_async(arr, dtype, device) -> torch.Tensor:
+    """numpy -> `dtype` tensor on `device`; to a card through pinned host
+    memory, a copy that does not make the host wait for the card."""
+    t = _tensor(arr, dtype)
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return t
+    return t.pin_memory().to(dev, non_blocking=True)
+
+
+def secp_batch_from_numpy(packed, device):
+    """crypto/secp256k1.pack_batch's (qx, qy, u1_nibs, u2_nibs, r_limbs,
+    rn_limbs, rn_valid) -> ops/secp256k1.verify_kernel's arguments on
+    `device`."""
+    *limbs, rn_valid = packed
+    return tuple(to_device_async(x, np.int32, device) for x in limbs) + \
+        (to_device_async(rn_valid, bool, device),)
+
+
+SECP_MSM_KEYS = ("gid", "g_rows", "g_neg", "q_rows", "q_neg", "r_limbs",
+                 "rn_limbs", "rn_valid", "s_pt")
+
+
+def secp_msm_from_numpy(pk: dict, device):
+    """crypto/secp256k1.pack_msm_batch's dict -> the arguments of
+    ops/secp256k1.msm_verify_kernel after the key tables (gid ... s_pt)
+    on `device`."""
+    return tuple(to_device_async(pk[k], bool if pk[k].dtype == bool
+                                 else np.int32, device)
+                 for k in SECP_MSM_KEYS)
+
+
+def q_tables_from_numpy(qtab, q_corr, device):
+    """Key tables built by either package ((52, 16, 3, 22, K) and
+    (3, 22, K) int32, as numpy) -> the (qtab, q_corr) tensors the port's
+    msm_verify_kernel takes."""
+    return (_tensor(qtab, np.int32).to(device),
+            _tensor(q_corr, np.int32).to(device))

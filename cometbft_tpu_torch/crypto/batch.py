@@ -1,14 +1,21 @@
 """BatchVerifier for the port: the accelerator seam of commit
-verification, ed25519 only (the counterpart of
-`cometbft_tpu.crypto.batch`).
+verification, by key type (the counterpart of `cometbft_tpu.crypto.batch`).
 
 - CudaEd25519BatchVerifier packs the batch and runs the RLC program on
   its device (kernels K1-K4 on a card, their plain versions for
   device="cpu"); on a reject the per-signature program localizes the bad
   signatures — CometBFT's verifyCommitBatch -> verifyCommitSingle
   pattern.
-- CpuEd25519BatchVerifier is the host loop (pure-Python ZIP-215),
-  used below the device threshold or when COMETBFT_TPU_PROVIDER=cpu.
+- CudaSecp256k1BatchVerifier runs the secp256k1 MSM program (K11 tables
+  through the QTableCache, K12), or with COMETBFT_TPU_SECP_MSM=0 the
+  ladder (K13); its verdicts are per signature.
+- CpuEd25519BatchVerifier / CpuSecp256k1BatchVerifier are the host loops
+  (pure Python), used below the device threshold of their key type or
+  when COMETBFT_TPU_PROVIDER=cpu.
+- MixedBatchVerifier splits a mixed-key batch by key type, runs each
+  type's verifier (concurrently when there are several) and merges the
+  verdicts in insertion order; a key type with no batch verifier is
+  verified singly.
 - _device_verify_hash is the device-hash route: hashing, aggregation
   and recode run on the device as well.  In the JAX package its
   pipeline takes this route under COMETBFT_TPU_DEVICE_HASH=1; the
@@ -47,14 +54,34 @@ class _SigCollector:
         return len(self._items)
 
 
-class CpuEd25519BatchVerifier(_SigCollector):
-    """ZIP-215 host loop (crypto/ed25519_ref)."""
+class _CpuLoopVerifier(_SigCollector):
+    """Host per-signature loop; subclasses provide _check(pk, msg, sig),
+    a ValueError counting as a reject."""
 
     def verify(self) -> tuple[bool, list[bool]]:
-        from . import ed25519_ref as ref
-
-        verdicts = [bool(ref.verify(pk, m, s)) for pk, m, s in self._items]
+        verdicts = []
+        for pk, m, s in self._items:
+            try:
+                verdicts.append(bool(self._check(pk, m, s)))
+            except ValueError:
+                verdicts.append(False)
         return all(verdicts) and bool(verdicts), verdicts
+
+
+class CpuEd25519BatchVerifier(_CpuLoopVerifier):
+    """ZIP-215 host loop (crypto/ed25519_ref)."""
+
+    def _check(self, pk, m, s):
+        from . import ed25519_ref as ref
+        return ref.verify(pk, m, s)
+
+
+class CpuSecp256k1BatchVerifier(_CpuLoopVerifier):
+    """ECDSA host loop (crypto/secp256k1._verify_py)."""
+
+    def _check(self, pk, m, s):
+        from . import secp256k1 as sk
+        return sk.PubKey(pk).verify_signature(m, s)
 
 
 class CudaEd25519BatchVerifier(_SigCollector):
@@ -160,9 +187,60 @@ def _device_verify_hash(pubkeys: list[bytes], msgs: list[bytes], parsed,
     return all(out) and bool(out), out
 
 
+class CudaSecp256k1BatchVerifier(_SigCollector):
+    """ECDSA batch on `device`.  By default the MSM program: u1*G from a
+    static G table and u2*Q from per-key tables the QTableCache keeps on
+    the device (K11 on a miss, then K12).  COMETBFT_TPU_SECP_MSM=0 takes
+    the per-signature ladder (K13) instead, as in the JAX package.  ECDSA
+    has no whole-batch equation, so the verdicts are per signature and a
+    reject needs no localization round.  An un-placed dispatch ("cuda",
+    no index) splits a large batch over the mesh first
+    (crypto/mesh.maybe_split_secp_verify)."""
+
+    def __init__(self, device):
+        super().__init__()
+        self.device = device
+
+    def verify(self) -> tuple[bool, list[bool]]:
+        from ..ops import ed25519 as ed_dev
+        from ..ops import secp256k1 as dev
+        from . import mesh
+        from . import secp256k1 as sk
+
+        n = len(self._items)
+        if n == 0:
+            return False, []
+        pubkeys = [i[0] for i in self._items]
+        msgs = [i[1] for i in self._items]
+        sigs = [i[2] for i in self._items]
+        if sk.msm_enabled():
+            out = None if _placed(self.device) else \
+                mesh.maybe_split_secp_verify(pubkeys, msgs, sigs)
+            if out is None:
+                out = sk.verify_msm_batch(pubkeys, msgs, sigs,
+                                          device=self.device)
+            return all(out) and bool(out), out
+        packed = sk.pack_batch(pubkeys, msgs, sigs, ed_dev.bucket_size(n))
+        verdict = dev.verify_batch_device(*packed[:-1], device=self.device)
+        out = (verdict.cpu().numpy() & packed[-1])[:n].tolist()
+        return all(out) and bool(out), out
+
+
 # below this many signatures the host loop wins (CometBFT's analog is
 # batchVerifyThreshold = 2; the device round-trip has a fixed cost)
 DEVICE_THRESHOLD = int(os.environ.get("COMETBFT_TPU_BATCH_THRESHOLD", "8"))
+
+# secp256k1 has no whole-batch equation, so its device advantage starts
+# at larger batches: the JAX package's crossover, never below
+# DEVICE_THRESHOLD
+SECP_DEVICE_THRESHOLD = int(os.environ.get(
+    "COMETBFT_TPU_SECP_THRESHOLD", "96"))
+
+
+def _device_threshold(key_type: str) -> int:
+    if key_type == "secp256k1":
+        return max(DEVICE_THRESHOLD, SECP_DEVICE_THRESHOLD)
+    return DEVICE_THRESHOLD
 
 
 def safe_verify(pub_key, msg: bytes, sig: bytes) -> bool:
@@ -174,7 +252,14 @@ def safe_verify(pub_key, msg: bytes, sig: bytes) -> bool:
         return False
 
 
-_SUPPORTED = {"ed25519"}
+# the key types the port batches: the JAX package's less sr25519, which
+# is not ported yet (its keys go through MixedBatchVerifier's singles)
+_SUPPORTED = {"ed25519", "secp256k1"}
+
+_CPU_BY_TYPE = {"ed25519": CpuEd25519BatchVerifier,
+                "secp256k1": CpuSecp256k1BatchVerifier}
+_CUDA_BY_TYPE = {"ed25519": CudaEd25519BatchVerifier,
+                 "secp256k1": CudaSecp256k1BatchVerifier}
 
 
 def supports_batch_verifier(key_type: str) -> bool:
@@ -184,11 +269,12 @@ def supports_batch_verifier(key_type: str) -> bool:
 def create_batch_verifier(key_type: str = "ed25519", n_hint: int = 0,
                           device="cuda",
                           provider: str | None = None) -> BatchVerifier:
-    """The verifier `provider` names, as the JAX package reads it
-    (argument first, else COMETBFT_TPU_PROVIDER, default "auto"): "cpu"
-    is the host loop at any size, "tpu" the device programs on `device`
-    at any size, and anything else picks by n_hint: the host loop below
-    DEVICE_THRESHOLD expected signatures, else the device programs."""
+    """The verifier for `key_type` that `provider` names, as the JAX
+    package reads it (argument first, else COMETBFT_TPU_PROVIDER, default
+    "auto"): "cpu" is the host loop at any size, "tpu" the device
+    programs on `device` at any size, and anything else picks by n_hint:
+    the host loop below the key type's device threshold
+    (_device_threshold), else the device programs."""
     from ..ops import device as devmod
 
     dev = devmod.resolve(device)
@@ -196,9 +282,76 @@ def create_batch_verifier(key_type: str = "ed25519", n_hint: int = 0,
     if key_type not in _SUPPORTED:
         raise ValueError(f"no batch verifier for key type {key_type}")
     if provider == "cpu":
-        return CpuEd25519BatchVerifier()
+        return _CPU_BY_TYPE[key_type]()
     if provider == "tpu":
-        return CudaEd25519BatchVerifier(dev)
-    if n_hint and n_hint < DEVICE_THRESHOLD:
-        return CpuEd25519BatchVerifier()
-    return CudaEd25519BatchVerifier(dev)
+        return _CUDA_BY_TYPE[key_type](dev)
+    if n_hint and n_hint < _device_threshold(key_type):
+        return _CPU_BY_TYPE[key_type]()
+    return _CUDA_BY_TYPE[key_type](dev)
+
+
+class MixedBatchVerifier:
+    """Routes a mixed-key batch to per-type verifiers on `device` and
+    merges their verdicts in insertion order.  CometBFT refuses mixed
+    batches; the JAX package batches them, and so does the port.  A key
+    type with no batch verifier is verified singly (safe_verify) at
+    verify() time."""
+
+    def __init__(self, provider: str | None = None, device="cuda"):
+        from ..ops import device as devmod
+
+        self._provider = provider
+        self._device = devmod.resolve(device)
+        self._items: dict[str, list] = {}
+        self._order: list[tuple[str, int] | None] = []
+        self._singles: list[tuple[object, bytes, bytes]] = []
+
+    def add(self, pubkey, msg: bytes, sig: bytes) -> None:
+        kt = pubkey.type() if hasattr(pubkey, "type") else "ed25519"
+        if not supports_batch_verifier(kt):
+            self._order.append(None)
+            self._singles.append((pubkey, msg, sig))
+            return
+        items = self._items.setdefault(kt, [])
+        self._order.append((kt, len(items)))
+        items.append((pubkey, msg, sig))
+
+    def count(self) -> int:
+        return len(self._order)
+
+    def _verify_subtype(self, kt: str, items) -> list[bool]:
+        sub = create_batch_verifier(kt, n_hint=len(items),
+                                    device=self._device,
+                                    provider=self._provider)
+        for pk, msg, sig in items:
+            sub.add(pk, msg, sig)
+        return sub.verify()[1]
+
+    def verify(self) -> tuple[bool, list[bool]]:
+        """Each key type's verifier is made here, so that n_hint routes a
+        small sub-batch (a lone secp256k1 validator in an ed25519 set) to
+        the host loop.  Sub-batches of different key types are
+        independent programs: with more than one they run in a thread
+        pool, one thread a type, as in the JAX package."""
+        if len(self._items) > 1:
+            from concurrent.futures import ThreadPoolExecutor
+
+            with ThreadPoolExecutor(
+                    max_workers=len(self._items),
+                    thread_name_prefix="mixed-batch") as ex:
+                futs = {kt: ex.submit(self._verify_subtype, kt, items)
+                        for kt, items in self._items.items()}
+                results = {kt: f.result() for kt, f in futs.items()}
+        else:
+            results = {kt: self._verify_subtype(kt, items)
+                       for kt, items in self._items.items()}
+        singles = iter(self._singles)
+        out = []
+        for slot in self._order:
+            if slot is None:
+                pk, msg, sig = next(singles)
+                out.append(safe_verify(pk, msg, sig))
+            else:
+                kt, i = slot
+                out.append(results[kt][i])
+        return all(out) and bool(out), out

@@ -1,8 +1,9 @@
-"""PubKey -> proto encoding for ed25519 keys, the part of
+"""PubKey -> proto encoding for the port's key types, the part of
 `cometbft_tpu.crypto.encoding` that validator-set hashing needs.
 
 The wire message is cometbft.crypto.v1.PublicKey, a oneof with
-`bytes ed25519 = 1` (proto/cometbft/crypto/v1/keys.proto).  These bytes
+`bytes ed25519 = 1` and `bytes secp256k1 = 2`
+(proto/cometbft/crypto/v1/keys.proto).  These bytes
 feed SimpleValidator hashing (types/validator.go), so they are
 consensus-critical.
 """
@@ -11,7 +12,7 @@ from __future__ import annotations
 
 from ..libs import protowire as pw
 
-_FIELD_BY_TYPE = {"ed25519": 1}
+_FIELD_BY_TYPE = {"ed25519": 1, "secp256k1": 2}
 
 
 def pubkey_to_proto(pubkey) -> bytes:

@@ -12,7 +12,10 @@ Two shapes of parallelism, as in ops/sharding.py:
   contiguous chunks, one RLC program per device (split_rlc_verify),
   each placed by moving its packed inputs to its device.  Chunk
   verdicts keep the per-chunk reject structure, so a reject localizes
-  with the split per-signature program.
+  with the split per-signature program;
+- the secp256k1 MSM program splits the same way (split_secp_verify),
+  each chunk with its key tables on its own device; its verdicts are
+  per signature already.
 
 Multi-device dispatch is opt-in, through COMETBFT_TPU_MESH_DEVICES
 (ops/sharding.mesh_device_list) or explicit device lists.  A device
@@ -164,3 +167,38 @@ def verify_batch_mesh(pubkeys: list[bytes], parsed, devices=None):
                                       bucket, parsed=parsed)
     verdict = sharding.verify_batch_sharded(a, r, s, h, devices=devices)
     return (verdict.cpu().numpy() & valid)[:n].tolist()
+
+
+def split_secp_verify(pubkeys: list[bytes], msgs: list[bytes],
+                      sigs: list[bytes], devices) -> list[bool]:
+    """split_rlc_verify for the secp256k1 MSM program: chunk i packs on
+    the host, takes its key tables from the QTableCache for devices[i]
+    (each device keeps its own copy) and launches its program there;
+    every chunk is launched before any verdict is read back, its inputs
+    reaching the card without a wait.  Returns the per-signature
+    verdicts in submission order."""
+    from ..ops import device as devmod
+    from . import secp256k1 as sk
+
+    spans = split_spans(len(pubkeys), len(devices))
+    outs = [sk.verify_msm_async(pubkeys[a:b], msgs[a:b], sigs[a:b],
+                                device=devmod.resolve(d))
+            for (a, b), d in zip(spans, devices)]
+    verdicts: list[bool] = []
+    for verdict, valid, m in outs:
+        verdicts.extend((verdict.cpu().numpy() & valid)[:m].tolist())
+    return verdicts
+
+
+def maybe_split_secp_verify(pubkeys: list[bytes], msgs: list[bytes],
+                            sigs: list[bytes],
+                            min_split: int | None = None):
+    """The CudaSecp256k1BatchVerifier hook: None when the split does not
+    apply (mesh off, fewer than two devices, batch under MIN_SPLIT);
+    otherwise the per-signature verdicts."""
+    if len(pubkeys) < (min_split if min_split is not None else MIN_SPLIT):
+        return None
+    devices = mesh_devices()
+    if devices is None:
+        return None
+    return split_secp_verify(pubkeys, msgs, sigs, devices)

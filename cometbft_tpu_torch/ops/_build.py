@@ -55,6 +55,12 @@ SIGNATURES = {
         "sha512_blocks": [_P, _P, _P, _I64, _I32, _P, _P, _P],
         "sha256_blocks": [_P, _P, _I64, _I32, _P, _P],
     },
+    "secp256k1_kernels": {
+        "secp_q_tables": [_P, _P, _I64, _P, _P, _P, _P],
+        "secp_msm_verify": [_P] * 13 + [_I64, _I64, _P, _P],
+        "secp_ladder": [_P] * 8 + [_I64, _P, _P],
+        "secp_threads": [],
+    },
 }
 
 _lock = threading.Lock()

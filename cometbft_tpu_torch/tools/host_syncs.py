@@ -15,9 +15,12 @@ operation" is one wait.  The inputs (12 signatures of ed25519_ref over
 seeded keys, 10 distinct) are copied to the card first and each
 program runs once before it is counted.  The counted stages are the
 device-hash program (ops/ed25519.rlc_verify_hash_kernel) whole and
-each of its hash-to-scalar steps, and the host-hash program
-(rlc_verify_kernel) whole.  A control, one copy of a numpy array to
-the card, must count 1.  Prints one JSON line.
+each of its hash-to-scalar steps, the host-hash program
+(rlc_verify_kernel) whole, and the secp256k1 MSM dispatch
+(crypto/secp256k1.verify_msm_async: pack, key-table lookup, copies and
+K12, over 12 signatures of 4 keys) with its key tables cached.  A
+control, one copy of a numpy array to the card, must count 1.  Prints
+one JSON line.
 """
 
 from __future__ import annotations
@@ -58,6 +61,7 @@ def main() -> int:
     from cometbft_tpu_torch import convert
     from cometbft_tpu_torch.crypto import ed25519 as ed
     from cometbft_tpu_torch.crypto import ed25519_ref as ref
+    from cometbft_tpu_torch.crypto import secp256k1 as sk
     from cometbft_tpu_torch.ops import ed25519 as dev
     from cometbft_tpu_torch.ops import scalar25519 as sc
     from cometbft_tpu_torch.ops import sha2
@@ -87,6 +91,9 @@ def main() -> int:
     zh = dev._zh_mod_l(z.long(), h)
     seg = dev._segment_sum_mod_l(zh, gid, a_words.shape[-1])
     k = dev._add_mod_l(base.long(), seg)
+    keys = [sk.PrivKey.generate(bytes([i % 4]) * 32) for i in range(12)]
+    secp = ([k.pub_key().bytes() for k in keys], msgs,
+            [k.sign(m) for k, m in zip(keys, msgs)])
     rec = {
         "root": args.root, "torch": torch.__version__,
         "card": subprocess.run(
@@ -107,7 +114,8 @@ def main() -> int:
                                        a_words.shape[-1]),
             "add_mod_l": waits(dev._add_mod_l, base.long(), seg),
             "recode_w5": waits(dev._recode_w5_device, k)},
-        "host_hash_program": waits(dev.rlc_verify_kernel, *th)}
+        "host_hash_program": waits(dev.rlc_verify_kernel, *th),
+        "secp_verify_msm_async": waits(sk.verify_msm_async, *secp)}
     print(json.dumps(rec), flush=True)
     return 0 if rec["control_one_copy"] == 1 else 1
 

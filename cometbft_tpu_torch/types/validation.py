@@ -4,7 +4,8 @@
 verify_commit / verify_commit_light / verify_commit_light_trusting keep
 CometBFT's ignore/count/threshold semantics (types/validation.go) and
 the JAX package's error classes and messages byte for byte, with the
-batch routed to the port's BatchVerifier on an explicit device.  Every
+batch routed to the port's BatchVerifier for the set's key type, or to
+MixedBatchVerifier for a mixed-key set, on an explicit device.  Every
 entry point takes `device=` (default "cuda") and resolves it first:
 without a card it raises unless the caller passes device="cpu".
 """
@@ -50,11 +51,12 @@ class ErrInvalidSignature(CommitVerificationError):
 def _should_batch_verify(vals, commit) -> bool:
     if len(commit.signatures) < BATCH_VERIFY_THRESHOLD:
         return False
-    if not vals.all_keys_have_same_type():
-        return False
-    proposer = vals.get_proposer()
-    return proposer is not None and proposer.pub_key is not None and \
-        crypto_batch.supports_batch_verifier(proposer.pub_key.type())
+    if vals.all_keys_have_same_type():
+        proposer = vals.get_proposer()
+        return proposer is not None and proposer.pub_key is not None and \
+            crypto_batch.supports_batch_verifier(proposer.pub_key.type())
+    # mixed key types: MixedBatchVerifier handles them (CometBFT refuses)
+    return True
 
 
 class DeferredSigBatch:
@@ -104,8 +106,7 @@ class DeferredSigBatch:
                 if not crypto_batch.safe_verify(pub, sign_bytes, sig):
                     raise self._fail(label, ctx, sig)
             return
-        bv = crypto_batch.create_batch_verifier(
-            "ed25519", n_hint=len(entries), device=dev)
+        bv = crypto_batch.MixedBatchVerifier(device=dev)
         for _, _, pub, sign_bytes, sig in entries:
             bv.add(pub, sign_bytes, sig)
         ok, verdicts = bv.verify()
@@ -236,9 +237,11 @@ def _verify(chain_id, vals, commit, needed, ignore, count, device,
         return
 
     if use_batch:
-        bv = crypto_batch.create_batch_verifier(
-            vals.get_proposer().pub_key.type(), n_hint=len(entries),
-            device=device)
+        bv = crypto_batch.MixedBatchVerifier(device=device) \
+            if not vals.all_keys_have_same_type() \
+            else crypto_batch.create_batch_verifier(
+                vals.get_proposer().pub_key.type(), n_hint=len(entries),
+                device=device)
         for _, val, sign_bytes, sig in entries:
             bv.add(val.pub_key, sign_bytes, sig)
         ok, verdicts = bv.verify()

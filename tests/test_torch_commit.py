@@ -213,8 +213,12 @@ def test_batch_verifier_routes_by_threshold():
     assert isinstance(bv, tbatch.CpuEd25519BatchVerifier)
     bv = tbatch.create_batch_verifier("ed25519", n_hint=5, device="cpu")
     assert isinstance(bv, tbatch.CudaEd25519BatchVerifier)
+    bv = tbatch.create_batch_verifier("secp256k1", n_hint=95, device="cpu")
+    assert isinstance(bv, tbatch.CpuSecp256k1BatchVerifier)
+    bv = tbatch.create_batch_verifier("secp256k1", n_hint=96, device="cpu")
+    assert isinstance(bv, tbatch.CudaSecp256k1BatchVerifier)
     with pytest.raises(ValueError):
-        tbatch.create_batch_verifier("secp256k1", device="cpu")
+        tbatch.create_batch_verifier("bls12_381", device="cpu")
 
 
 def test_sign_bytes_match():
