@@ -10,7 +10,8 @@ Phases (one JSON line each; any failure exits non-zero and prints no
 result):
   1. build   compile ops/csrc/*.cu with nvcc (one nvcc per source, in
              parallel), print the card's name and power limit, and
-             report each kernel's registers and spills (ptxas -v);
+             report each kernel's registers, stack and spills (ptxas
+             -v); K11 and K12 must show neither a stack nor spills;
   2. commit  one 150-validator commit through verify_commit_light on the
              card: accept, one tampered signature (ErrInvalidSignature
              naming its index), a commit below +2/3;
@@ -101,10 +102,13 @@ result):
              of the window's localization) and K9 / K10 at their padding
              boundaries, with rows whose block count is 0, word for word
              and against hashlib; K10 at the 10,000 validator leaves;
-             K11 at K = 4, 128 and 192, limb for limb; K12 at the commit's,
-             window's and batch's packs and at the commit's with r moved
-             into the r + n slot (accepted with rn_valid set, rejected
-             without), and K13 at the hostile batch and
+             K11 at K = 4, 128 and 192, at canonical value (it stores
+             frozen tables, its plain version weak ones); K12 at the
+             commit's, window's and batch's packs, at the commit's with r
+             moved into the r + n slot (accepted with rn_valid set,
+             rejected without) and at a 16,384-lane pack over 192 keys
+             with a third of its lanes corrupted in s, r, a digit or the
+             key slot (_wide_pack), and K13 at the hostile batch and
              at the edges of its exact additions (doubling, cancelling,
              infinity, nibbles outside 0..15), verdict for verdict and
              against the host;
@@ -112,8 +116,9 @@ result):
              back and each plain version's median time per call (CUDA
              events), with the bound the card could reach for the same
              work; for K9-K13 also their time launched through the C
-             function into preallocated outputs (raw_ms, no wrapper), for
-             K9 and K10 hashlib's time on the host for the same messages.
+             function into preallocated outputs (raw_ms, no wrapper), K11's
+             walk and rows apart (raw_walk_ms, raw_rows_ms), for K9 and
+             K10 hashlib's time on the host for the same messages.
 The launch counters are reset before phase 2 and read after phase 4
 (the default engine: every one of K1-K4 must launch there, none of
 K5-K8), reset before and read after phase 5's path (its comparisons
@@ -189,6 +194,7 @@ MIXED_ED, MIXED_SECP = 9000, 1000   # bench.py's bench_mixed fixture
 MIXED_ED_LAUNCHES = {"ed25519_decompress": 3, "ed25519_table17_neg": 2,
                      "ed25519_msm_window_major": 2, "ed25519_fold_verify": 1}
 SECP_ABSENT = N_VALS - (2 * N_VALS // 3 + 1)   # 49 absent of each window commit
+WIDE_LANES, WIDE_KEYS = 16384, 192   # K12's corrupted wide pack
 N_VALSET = 10_000              # ValidatorSet.hash(): upstream's largest sets
 MESH_SHARDS = (1, 2, 4)
 NVLINK_BYTES_PER_S = 450e9     # one direction, H100 SXM data sheet
@@ -380,6 +386,13 @@ def phase_build(state, torch):
     state["sm_clock_hz"] = float(clock) * 1e6
     state["card"] = card
     state["ptxas"] = ptxas
+    # K11 and K12 keep their operands in registers: no spill, no stack
+    for kernel in ("secp_q_tables", "secp_msm_verify"):
+        found = _ptxas_of(state, kernel)
+        check(len(found) >= 2 and all(
+            v.get(k, 0) == 0 for v in found.values()
+            for k in ("stack_frame", "spill_stores", "spill_loads")),
+            f"{kernel}: ptxas reports a stack or spills: {found}")
     return {"card": card, "build_seconds": time.perf_counter() - t0,
             "sources": sources, "max_sm_clock_mhz": float(clock),
             "ptxas": ptxas}
@@ -2205,13 +2218,77 @@ def _r_in_rn_slot(pk, want):
     return pk, want
 
 
+def _frozen(t):
+    """ops/fe_secp.freeze along the limb axis (second to last)."""
+    from cometbft_tpu_torch.ops import fe_secp as fs
+
+    return fs.freeze(t.movedim(-2, 0)).movedim(0, -2)
+
+
+def _wide_pack(state):
+    """K12's wide case: a pack of WIDE_LANES signatures, lane i signed by
+    key i % WIDE_KEYS (seeded), a third of the lanes corrupted: s + 1
+    (lanes 12k + 5), r + 1 (12k + 6), one digit of the pack (12k + 8: a Q
+    window's sign, or a G window's row), the key slot (12k + 9: moved to
+    the next slot, the signature then held against that key); lanes 0-3
+    with r in the r + n slot (_r_in_rn_slot).  Returns (pack, the verdicts
+    it must give: _verify_py's, and a reject where a digit changed, then
+    K11's tables of its keys)."""
+    import numpy as np
+
+    from cometbft_tpu_torch import convert
+    from cometbft_tpu_torch.crypto import secp256k1 as sk
+    from cometbft_tpu_torch.ops import cuda_secp as cs
+    from cometbft_tpu_torch.ops import fe_secp as fs
+
+    pool = state["pool"]
+    seeds = [_seed("secp wide key", k) for k in range(WIDE_KEYS)]
+    keys = _pool_map(pool, _secp_pubkeys, seeds)
+    msgs = [b"secp wide %d" % i for i in range(WIDE_LANES)]
+    sigs = _pool_map(pool, _secp_sign, [(seeds[i % WIDE_KEYS], m)
+                                        for i, m in enumerate(msgs)])
+    pubs = [keys[i % WIDE_KEYS] for i in range(WIDE_LANES)]
+    for i in range(WIDE_LANES):
+        r, s_ = int.from_bytes(sigs[i][:32], "big"), int.from_bytes(
+            sigs[i][32:], "big")
+        if i % 12 == 5:
+            s_ = s_ % (sk.N - 1) + 1
+        elif i % 12 == 6:
+            r = r % (sk.N - 1) + 1
+        sigs[i] = r.to_bytes(32, "big") + s_.to_bytes(32, "big")
+    pk = sk.pack_msm_batch(pubs, msgs, sigs, WIDE_LANES)
+    pk = {k: np.array(v) for k, v in pk.items()}
+    nk = pk["keys_x"].shape[-1]
+    slot_pubs = list(pubs)
+    for i in range(9, WIDE_LANES, 12):
+        g = (int(pk["gid"][i]) + 1) % nk
+        pk["gid"][i] = g
+        x, y = (fs.limbs_to_int(pk[k][:, g]) for k in ("keys_x", "keys_y"))
+        slot_pubs[i] = bytes([2 + y % 2]) + x.to_bytes(32, "big")
+    want = _secp_oracle(state, (slot_pubs, msgs, sigs))
+    for i in range(8, WIDE_LANES, 12):
+        if (i // 12) % 2:
+            pk["q_neg"][i % 52, i] ^= True
+        else:
+            pk["g_rows"][i % 32, i] = (pk["g_rows"][i % 32, i] + 1) % 128
+        want[i] = False
+    pk, want = _r_in_rn_slot(pk, want)
+    check(sum(want) > WIDE_LANES // 2 and not any(
+        want[i] for i in range(WIDE_LANES) if i % 12 in (5, 6, 8, 9)),
+        "wide pack oracle")
+    qt, qc = cs.q_msm_tables(*(convert.to_device_async(pk[k], np.int32,
+                                                        DEVICE)
+                               for k in ("keys_x", "keys_y")))
+    return pk, want, qt, qc
+
+
 def _secp_cases(state, torch):
     """K11, K12 and K13 against their plain versions on the card: K11 at
-    K = 4, 128 (commit, batch) and 192 (window), equal limb for limb;
-    K12 at the commit's, window's and hostile batch's packs and at the
-    commit's with r moved into the r + n slot (_r_in_rn_slot), K13 at
-    the hostile batch and the edge lanes, verdict for verdict, and
-    against _verify_py."""
+    K = 4, 128 (commit, batch) and 192 (window), equal at canonical value;
+    K12 at the commit's, window's and hostile batch's packs, at the
+    commit's with r moved into the r + n slot (_r_in_rn_slot) and at the
+    wide corrupted pack (_wide_pack), K13 at the hostile batch and the
+    edge lanes, verdict for verdict, and against _verify_py."""
     import numpy as np
 
     from cometbft_tpu_torch import convert
@@ -2236,7 +2313,10 @@ def _secp_cases(state, torch):
                   for k in ("keys_x", "keys_y"))
         qt, qc = cs.q_msm_tables(kx, ky)
         pt, pc = sk_ops.q_msm_tables_kernel_plain(kx, ky)
-        err = max(_exact(qt, pt), _exact(qc, pc))
+        # K11 stores frozen tables, its plain version weak ones: equal at
+        # canonical value, and K11's digits already canonical
+        err = max(_exact(qt, _frozen(pt)), _exact(qc, _frozen(pc)),
+                  _exact(qt, _frozen(qt)), _exact(qc, _frozen(qc)))
         nk = int(kx.shape[-1])
         check(err == 0, f"K11 {label} K = {nk} differs from plain by {err}")
         k11.append({"shape": [nk], "max_abs_err": err, "args": (kx, ky),
@@ -2246,15 +2326,19 @@ def _secp_cases(state, torch):
         runs = [(label, pk, _secp_oracle(state, items))]
         if label == "commit":
             runs.append(("commit r + n", *_r_in_rn_slot(pk, runs[0][2])))
+        if label == "window":
+            wide, want, qt_w, qc_w = _wide_pack(state)
+            runs.append(("wide, corrupted", wide, want))
         for run, p, want in runs:
-            args = (qt, qc) + convert.secp_msm_from_numpy(p, DEVICE)
+            tabs = (qt_w, qc_w) if run.startswith("wide") else (qt, qc)
+            args = tabs + convert.secp_msm_from_numpy(p, DEVICE)
             got = cs.msm_verify(*args)
             plain = sk_ops.msm_verify_kernel_plain(*args)
             err = int((got != plain).sum())
-            verdicts = (got.cpu().numpy() & p["valid"])[:n].tolist()
+            verdicts = (got.cpu().numpy() & p["valid"])[:len(want)].tolist()
             check(err == 0 and verdicts == want, f"K12 {run}: {err} "
                   "verdicts differ from plain, or from _verify_py")
-            k12.append({"shape": [int(got.shape[0]), nk],
+            k12.append({"shape": [int(got.shape[0]), int(tabs[0].shape[-1])],
                         "max_abs_err": err, "args": args, "phase": run})
     packed = sk.pack_batch(*hostile, SECP_BATCH)
     for label, (args, want) in (
@@ -2277,9 +2361,10 @@ def _secp_cases(state, torch):
             "secp_ladder": k13}
 
 
-def _raw_secp(torch, name, args):
+def _raw_secp(torch, name, args, step=None):
     """K11, K12 or K13 launched through its C function into preallocated
-    outputs: the kernel's time without the wrapper's checks."""
+    outputs: the kernel's time without the wrapper's checks; K11's walk
+    or rows alone with step "walk" or "rows"."""
     from cometbft_tpu_torch.ops import cuda_secp as cs
     from cometbft_tpu_torch.ops import device as devmod
     from cometbft_tpu_torch.ops import secp256k1 as sk
@@ -2292,10 +2377,17 @@ def _raw_secp(torch, name, args):
         outs = [torch.empty(s, dtype=torch.int32, device=dev) for s in (
             (sk.MSM_NQ, 3, 22, nk), (sk.MSM_NQ, 16, 3, 22, nk), (3, 22, nk))]
         ptrs = [devmod.ptr(t) for t in (*args, *outs)]
-
-        def launch():
+        fn, call = {
+            None: (lib.secp_q_tables, (ptrs[0], ptrs[1], nk, *ptrs[2:])),
+            "walk": (lib.secp_q_tables_walk, (ptrs[0], ptrs[1], nk, ptrs[2],
+                                              ptrs[4])),
+            "rows": (lib.secp_q_tables_rows, (ptrs[2], nk, ptrs[3]))}[step]
+        if step == "rows":           # the bases the rows read
             devmod.check_launch(lib.secp_q_tables(ptrs[0], ptrs[1], nk,
                                                   *ptrs[2:], stream), name)
+
+        def launch():
+            devmod.check_launch(fn(*call, stream), name)
         return launch
     out = torch.empty(args[2].shape[0] if name == "secp_msm_verify"
                       else args[0].shape[-1], dtype=torch.bool, device=dev)
@@ -2484,14 +2576,19 @@ def _bound(state, ops, nbytes, bytes_per_s=HBM_BYTES_PER_S):
                                  else "bytes")
 
 
+# the entry functions of each secp256k1 kernel (K11 has two, K12 one per
+# split T and its out-of-line products), as ptxas names them
+SECP_ENTRIES = {"secp_q_tables": ("q_bases_kernel", "q_rows_kernel"),
+                "secp_msm_verify": ("msm_verify_kernel", "7fesecpn3mul",
+                                    "7fesecpn3sqr"),
+                "secp_ladder": ("ladder_kernel",)}
+
+
 def _ptxas_of(state, name):
-    """ptxas -v's registers and spills of the entry functions of a
-    secp256k1 kernel (K11 has two)."""
-    entries = {"secp_q_tables": ("q_bases_kernel", "q_rows_kernel"),
-               "secp_msm_verify": ("msm_verify_kernel",),
-               "secp_ladder": ("ladder_kernel",)}[name]
-    return {e: v for k, v in state["ptxas"].items() for e in entries
-            if e in k}
+    """ptxas -v's registers, stack and spills of a secp256k1 kernel's
+    entry functions."""
+    return {k: v for k, v in state["ptxas"].items()
+            if any(e in k for e in SECP_ENTRIES[name])}
 
 
 def phase_timing(state, torch):
@@ -2532,6 +2629,11 @@ def phase_timing(state, torch):
                 extra["raw_ms"] = _time(torch, _raw_secp(torch, name,
                                                          case["args"]),
                                         (), 7, inner=10)
+            if name == "secp_q_tables":
+                for step in ("walk", "rows"):
+                    extra[f"raw_{step}_ms"] = _time(
+                        torch, _raw_secp(torch, name, case["args"], step),
+                        (), 7, inner=10)
             if name in HASH_KERNELS:
                 extra["raw_ms"] = _time(torch, _raw_sha(torch, name,
                                                         case["args"]),

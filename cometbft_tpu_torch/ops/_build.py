@@ -57,6 +57,8 @@ SIGNATURES = {
     },
     "secp256k1_kernels": {
         "secp_q_tables": [_P, _P, _I64, _P, _P, _P, _P],
+        "secp_q_tables_walk": [_P, _P, _I64, _P, _P, _P],
+        "secp_q_tables_rows": [_P, _I64, _P, _P],
         "secp_msm_verify": [_P] * 13 + [_I64, _I64, _P, _P],
         "secp_ladder": [_P] * 8 + [_I64, _P, _P],
         "secp_threads": [],

@@ -1,19 +1,21 @@
 """Kernels K11-K13 of the secp256k1 verify path — the per-key window
 tables, the shared-table MSM verify and the Straus ladder — as ctypes
-wrappers of ops/csrc/secp256k1_kernels.cu (field and point operations in
-ops/csrc/fe_secp.cuh).
+wrappers of ops/csrc/secp256k1_kernels.cu.
 
 K11 `q_msm_tables` replaces `cometbft_tpu/ops/secp256k1.py::
 q_msm_tables_kernel` (:327), K12 `msm_verify` its `msm_verify_kernel`
 (:360) and K13 `verify_ladder` its `verify_kernel` (:186): plain `jnp`
 under `lax.scan` in the JAX package, tens of thousands of small launches
-each in eager torch.  Each kernel runs one thread per lane in the plain
-version's order (ops/secp256k1.py), so tables and verdicts equal the
-plain version's limb for limb.  K11 is two CUDA launches: one thread per
-key walks its 52 window bases (5 doublings a window), then one thread
-per (window, key) builds the window's 16 odd rows.  Bound on the H100:
-operations (field products), reached by none of them with one thread
-per lane — a first design, the redesign is later work.
+each in eager torch.  K11 and K12 run on the native field of
+ops/csrc/fe_secp_n.cuh (eight 32-bit words, operands in registers):
+K11's point operations on thread quads, in two CUDA launches (a quad per
+key walks its 52 window bases, then a quad per (window, key) builds the
+window's 16 odd rows), its tables stored frozen, equal to the plain
+version's at canonical value; K12 splits each signature's sum over 4 or
+8 threads with blinded partial sums, its verdicts the plain version's.
+K13 runs one thread per signature on ops/csrc/fe_secp.cuh, the JAX
+package's 22 x 12-bit field, limb for limb the plain version's.  Bound
+on the H100: operations (field products), reached by none of them.
 
 Every wrapper runs its plain version (ops/secp256k1.py, `*_plain`) for a
 CPU tensor and launches its kernel for a CUDA tensor (or raises);
@@ -28,7 +30,7 @@ import torch
 from . import device as devmod
 from . import fe_secp as fs
 
-SECP_THREADS = 32        # threads per block: csrc SECP_THREADS
+SECP_THREADS = 32        # K13's threads per block: csrc SECP_THREADS
 NL = fs.NLIMBS
 
 

@@ -24,7 +24,8 @@ The JAX package computes all three as plain `jnp` under `lax.scan`.  In
 eager torch each would be tens of thousands of small launches, so on a
 CUDA tensor each runs its hand-written kernel (ops/cuda_secp.py,
 ops/csrc/secp256k1_kernels.cu); on a CPU tensor it runs the plain version
-below, which the kernels equal limb for limb.
+below, which K13 equals limb for limb, K11 at canonical value (it stores
+frozen tables) and K12 verdict for verdict.
 """
 
 from __future__ import annotations

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Time the port's kernels K1 (decompress), K2 (table17_neg), K3
 (msm_window_major), K4 (fold_verify), K5 (msm_window_major_grouped), K6
-(msm_window_loop) and K7 (select_tree) of one checkout on the card, at
-the main path's widths, and optionally count the instruction mix of K1's
-and K2's longest loops.
+(msm_window_loop), K7 (select_tree), K11 (secp_q_tables) and K12
+(secp_msm_verify) of one checkout on the card, at the main path's
+widths, and optionally count the instruction mix of K1's and K2's
+longest loops.
 
     python3 cometbft_tpu_torch/tools/time_kernels.py [--root DIR] [--sass]
 
@@ -56,6 +57,8 @@ import sys
 from pathlib import Path
 
 WIDTHS = (128, 5120, 8192, 10240)
+SECP_KEYS = (4, 128, 192)                      # K11: keys
+SECP_SHAPES = ((256, 128), (4096, 128), (16384, 192))   # K12: (B, K)
 K4_SHAPES = ((4, 4), (4, 10), (10, 8))     # commit, window, batch
 LOOP_BLKS = (512, 2048)                    # BLK for K6 and K7
 
@@ -114,6 +117,105 @@ def _loop_mix(sass: str, kernel: str) -> dict:
     mix = collections.Counter(op.split(".")[0]
                               for _, op, _ in ins[best[0]:best[1] + 1])
     return {"instructions": best[1] - best[0] + 1, **dict(mix.most_common())}
+
+
+def _secp(torch, rec):
+    """K11 and K12 of the checkout: held against their plain versions,
+    then timed by raw launches.  Returns whether both held."""
+    import random
+
+    import numpy as np
+
+    from cometbft_tpu_torch import convert
+    from cometbft_tpu_torch.crypto import secp256k1 as sk
+    from cometbft_tpu_torch.ops import _build
+    from cometbft_tpu_torch.ops import cuda_secp as cs
+    from cometbft_tpu_torch.ops import device as devmod
+    from cometbft_tpu_torch.ops import fe_secp as fs
+    from cometbft_tpu_torch.ops import secp256k1 as sko
+
+    lib = _build.load("secp256k1_kernels")
+    dev = torch.device("cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    ptr = devmod.ptr
+    gtab, gcorr, _ = sko.g_tables_on(dev)
+
+    def frozen(t):
+        return fs.freeze(t.movedim(-2, 0)).movedim(0, -2)
+
+    def tables(kx, ky):
+        nk = kx.shape[-1]
+        outs = [torch.empty(shape, dtype=torch.int32, device=dev) for shape in
+                ((52, 3, 22, nk), (52, 16, 3, 22, nk), (3, 22, nk))]
+        return outs, (ptr(kx), ptr(ky), nk, *map(ptr, outs), stream)
+
+    rng = random.Random(20261018)
+    keys = {}
+    for nk in SECP_KEYS:
+        pts = [sk._jaffine(sk._jmul(rng.randrange(1, sk.N), sk._G))
+               for _ in range(nk)]
+        keys[nk] = tuple(torch.from_numpy(np.ascontiguousarray(np.stack(
+            [fs.int_to_limbs(p[c]) for p in pts], 1))).to(dev)
+            for c in (0, 1))
+    (_, qt, qc), a = tables(*keys[4])
+    ok = lib.secp_q_tables(*a) == 0
+    pt, pc = sko.q_msm_tables_kernel_plain(*keys[4])
+    k11_err = int((frozen(qt) != frozen(pt)).sum()
+                  + (frozen(qc) != frozen(pc)).sum())
+    privs = [sk.PrivKey.generate(bytes([i + 1]) * 32) for i in range(4)]
+    pubs, msgs, sigs = [], [], []
+    for i in range(96):
+        m = b"time_kernels %d" % i
+        sig = privs[i % 4].sign(m)
+        if i % 3 == 1:
+            sig = sig[:32] + ((int.from_bytes(sig[32:], "big") + 1) % sk.N
+                              ).to_bytes(32, "big")
+        pubs.append(privs[i % 4].pub_key().bytes())
+        msgs.append(m)
+        sigs.append(sig)
+    pk = sk.pack_msm_batch(pubs, msgs, sigs, 256)
+    args = cs.q_msm_tables(*(convert.to_device_async(pk[k], np.int32, dev)
+                             for k in ("keys_x", "keys_y"))) \
+        + convert.secp_msm_from_numpy(pk, dev)
+    out = torch.empty((256,), dtype=torch.bool, device=dev)
+    ok = ok and lib.secp_msm_verify(*map(ptr, (*args, gtab, gcorr)), 256,
+                                    args[0].shape[-1], ptr(out), stream) == 0
+    plain = sko.msm_verify_kernel_plain(*args)
+    want = [sk.PubKey(p).verify_signature(m, g)
+            for p, m, g in zip(pubs, msgs, sigs)]
+    k12_ok = (bool((out == plain).all())
+              and (out.cpu().numpy() & pk["valid"])[:96].tolist() == want
+              and sum(want) == 64)
+    rec.update(k11_err_k4=k11_err, k12_verdicts_equal=k12_ok,
+               k11_ms={}, k12_ms={})
+    has_steps = hasattr(lib, "secp_q_tables_walk")
+    for nk in SECP_KEYS:
+        (bases, qt, qc), a = tables(*keys[nk])
+        ent = {"all": _time(torch, lib.secp_q_tables, a, inner=5)}
+        if has_steps:
+            ent["walk"] = _time(torch, lib.secp_q_tables_walk,
+                                a[:4] + a[5:], inner=5)
+            ent["rows"] = _time(torch, lib.secp_q_tables_rows,
+                                (a[3], nk, a[4], stream), inner=5)
+        rec["k11_ms"][nk] = ent
+    gen = torch.Generator(device="cuda").manual_seed(20261018)
+    for nb, nk in SECP_SHAPES:
+        (_, qt, qc), a = tables(*keys[nk])
+        lib.secp_q_tables(*a)
+
+        def ri(hi, shape):
+            return torch.randint(0, hi, shape, dtype=torch.int32,
+                                 device="cuda", generator=gen)
+        k12 = (qt, qc, ri(nk, (nb,)), ri(128, (32, nb)),
+               ri(2, (32, nb)).bool(), ri(16, (52, nb)),
+               ri(2, (52, nb)).bool(), ri(4096, (22, nb)),
+               ri(4096, (22, nb)), ri(2, (nb,)).bool(), args[-1], gtab,
+               gcorr)
+        out = torch.empty((nb,), dtype=torch.bool, device="cuda")
+        rec["k12_ms"][f"{nb}x{nk}"] = _time(
+            torch, lib.secp_msm_verify,
+            (*map(ptr, k12), nb, nk, ptr(out), stream))
+    return ok and k11_err == 0 and k12_ok
 
 
 def main() -> int:
@@ -248,6 +350,7 @@ def main() -> int:
                 (devmod.ptr(tab), devmod.ptr(mag0), devmod.ptr(neg0), w, blk,
                  out_l, nout, devmod.ptr(lout), stream))
         cm.BLK = saved_blk
+    secp_ok = _secp(torch, rec)
     if args.sass:
         so = _build._target("ed25519_kernels")
         tool = Path(_build.nvcc()).parent / "cuobjdump"
@@ -258,7 +361,7 @@ def main() -> int:
     print(json.dumps(rec), flush=True)
     loop_ok = all(e in (0, "refused") for e in loop_err.values())
     return 0 if (k1_err == 0 and k2_err == 0 and k4_ok and k5_err == 0
-                 and loop_ok) else 1
+                 and loop_ok and secp_ok) else 1
 
 
 if __name__ == "__main__":
