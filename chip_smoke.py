@@ -11,7 +11,8 @@ result):
   1. build   compile ops/csrc/*.cu with nvcc (one nvcc per source, in
              parallel), print the card's name and power limit, and
              report each kernel's registers, stack and spills (ptxas
-             -v); K11 and K12 must show neither a stack nor spills;
+             -v); K11, K12 and K13 must show neither a stack nor
+             spills;
   2. commit  one 150-validator commit through verify_commit_light on the
              card: accept, one tampered signature (ErrInvalidSignature
              naming its index), a commit below +2/3;
@@ -108,10 +109,14 @@ result):
              moved into the r + n slot (accepted with rn_valid set,
              rejected without) and at a 16,384-lane pack over 192 keys
              with a third of its lanes corrupted in s, r, a digit or the
-             key slot (_wide_pack), and K13 at the hostile batch and
-             at the edges of its exact additions (doubling, cancelling,
-             infinity, nibbles outside 0..15), verdict for verdict and
-             against the host;
+             key slot (_wide_pack), and K13 at the hostile batch, at
+             the edges of its exact additions (doubling, cancelling,
+             infinity, nibbles outside 0..15), at sums with Z = 0 off
+             infinity (X = 0 and X != 0; r and r + n = 0, and weak
+             zeros) and at a 16,384-lane pack of the same signatures
+             with a third of its lanes corrupted (s, r, a nibble, the
+             key) and r + n lanes (_wide_ladder), verdict for verdict
+             and against the host;
  10. timing  each kernel's median time over runs of 10 launches back to
              back and each plain version's median time per call (CUDA
              events), with the bound the card could reach for the same
@@ -255,7 +260,6 @@ M256, S256 = 64 + 10, 36 + 10
 JDBL = 2 * M256 + 5 * S256           # dbl-2009-l (a = 0)
 JADD = 11 * M256 + 5 * S256          # add-2007-bl
 JMADD = 7 * M256 + 4 * S256          # madd-2007-bl (Z2 = 1)
-INV = 255 * S256 + 15 * M256         # an addition chain for p - 2
 # per key: 52 windows of 5 doublings, then a doubling and 15 adds each
 K11_KEY = 52 * 5 * JDBL + 52 * (JDBL + 15 * JADD)
 # per signature: 32 mixed adds from the G table and the 2^256 G
@@ -263,8 +267,9 @@ K11_KEY = 52 * 5 * JDBL + 52 * (JDBL + 15 * JADD)
 # corrections, the epilogue's Z^2, r Z^2 and (r + n) Z^2
 K12_SIG = 33 * JMADD + 54 * JADD + S256 + 2 * M256
 # per signature: the 16-row Q table (a doubling, 13 adds), 64 windows of
-# 4 doublings and 2 adds, the inversion, Z^2 and X / Z^2
-K13_SIG = JDBL + 13 * JADD + 64 * (4 * JDBL + 2 * JADD) + INV + S256 + M256
+# 4 doublings and 2 adds, the epilogue's Z^2, r Z^2 and (r + n) Z^2 (no
+# inversion: X == r Z^2, as K12 decides it)
+K13_SIG = JDBL + 13 * JADD + 64 * (4 * JDBL + 2 * JADD) + S256 + 2 * M256
 
 
 # -- host fixtures (pure Python, several processes) --------------------------
@@ -386,10 +391,12 @@ def phase_build(state, torch):
     state["sm_clock_hz"] = float(clock) * 1e6
     state["card"] = card
     state["ptxas"] = ptxas
-    # K11 and K12 keep their operands in registers: no spill, no stack
-    for kernel in ("secp_q_tables", "secp_msm_verify"):
+    # K11-K13 keep their operands in registers: no spill, no stack (K11
+    # has two entry functions, K12 two and its out-of-line products)
+    for kernel, entries in (("secp_q_tables", 2), ("secp_msm_verify", 2),
+                            ("secp_ladder", 1)):
         found = _ptxas_of(state, kernel)
-        check(len(found) >= 2 and all(
+        check(len(found) >= entries and all(
             v.get(k, 0) == 0 for v in found.values()
             for k in ("stack_frame", "spill_stores", "spill_loads")),
             f"{kernel}: ptxas reports a stack or spills: {found}")
@@ -2266,6 +2273,7 @@ def _wide_pack(state):
         x, y = (fs.limbs_to_int(pk[k][:, g]) for k in ("keys_x", "keys_y"))
         slot_pubs[i] = bytes([2 + y % 2]) + x.to_bytes(32, "big")
     want = _secp_oracle(state, (slot_pubs, msgs, sigs))
+    state["wide_items"] = (slot_pubs, msgs, sigs), list(want)
     for i in range(8, WIDE_LANES, 12):
         if (i // 12) % 2:
             pk["q_neg"][i % 52, i] ^= True
@@ -2282,13 +2290,89 @@ def _wide_pack(state):
     return pk, want, qt, qc
 
 
+def _wide_ladder(state):
+    """K13's wide case: _wide_pack's signatures (s + 1, r + 1 and the key
+    corrupted on lanes 12k + 5, 6, 9) through pack_batch, one nibble
+    changed on lanes 12k + 8 (window i % 64 of u1, or of u2 on every
+    other such lane, + 1 mod 16), lanes 0-3 with r in the r + n slot
+    (_r_in_rn_slot).  Returns (arguments, the verdicts they must give:
+    _verify_py's, and a reject where a nibble changed, the pack's
+    structural mask)."""
+    import numpy as np
+
+    from cometbft_tpu_torch import convert
+    from cometbft_tpu_torch.crypto import secp256k1 as sk
+
+    items, want = state["wide_items"]
+    want = list(want)
+    packed = [np.array(a) for a in sk.pack_batch(*items, WIDE_LANES)]
+    for i in range(8, WIDE_LANES, 12):
+        nibs = packed[2 + (i // 12) % 2]
+        nibs[i % 64, i] = (nibs[i % 64, i] + 1) % 16
+        want[i] = False
+    rn, want = _r_in_rn_slot(dict(zip(("r_limbs", "rn_limbs", "rn_valid"),
+                                      packed[4:7])), want)
+    packed[4:7] = rn["r_limbs"], rn["rn_limbs"], rn["rn_valid"]
+    check(sum(want) > WIDE_LANES // 2 and not any(
+        want[i] for i in range(WIDE_LANES) if i % 12 in (5, 6, 8, 9)),
+        "wide ladder oracle")
+    return convert.secp_batch_from_numpy(packed[:-1], DEVICE), want, \
+        packed[-1]
+
+
+def _ladder_zero_z_arrays():
+    """K13 inputs whose sum has Z = 0 off infinity, 8 lanes as numpy
+    arrays in pack_batch's layout (its `valid` left out), and the
+    verdicts they must give.  An off-curve key with y = 0 doubles to Z =
+    0, and u1 = 0 with u2 = 2 * 16^63 makes the sum 2Q, doubled 252
+    times: lanes 0-3 take Q = (0, 0), whose sum is (0, 0, 0) (X = 0),
+    lanes 4-7 Q = (x, 0), x seeded (X != 0).  The plain version's Fermat
+    inverse of 0 is 0, so its affine x is 0: a lane accepts where r = 0
+    (lanes 0 and 4, lane 4 as the weak zero p), or rn = 0 with rn_valid
+    (lanes 2 and 6, lane 6 as p), and rejects where rn = 0 without it
+    (lanes 3 and 7) or r = rn = 5 (lanes 1 and 5) - X == r Z^2 alone
+    would accept every lane of 0-3."""
+    import random
+
+    import numpy as np
+
+    from cometbft_tpu_torch.ops import fe_secp as fs
+
+    rng = random.Random(SEED)
+    qx = np.zeros((fs.NLIMBS, 8), np.int32)
+    for i in range(4, 8):
+        qx[:, i] = fs.int_to_limbs(rng.randrange(1, fs.P))
+    u2 = np.zeros((64, 8), np.int32)
+    u2[0] = 2
+    r = np.repeat(fs.int_to_limbs(5)[:, None], 8, 1)
+    rn = r.copy()
+    r[:, 0] = fs.int_to_limbs(0)
+    r[:, 4] = fs._P_CANON
+    for i in (2, 3, 7):
+        rn[:, i] = fs.int_to_limbs(0)
+    rn[:, 6] = fs._P_CANON
+    rn_valid = np.zeros(8, bool)
+    rn_valid[[2, 6]] = True
+    return (qx, np.zeros_like(qx), np.zeros_like(u2), u2, r, rn,
+            rn_valid), [True, False, True, False] * 2
+
+
+def _ladder_zero_z(torch):
+    """_ladder_zero_z_arrays on DEVICE."""
+    from cometbft_tpu_torch import convert
+
+    arrays, want = _ladder_zero_z_arrays()
+    return convert.secp_batch_from_numpy(arrays, DEVICE), want
+
+
 def _secp_cases(state, torch):
     """K11, K12 and K13 against their plain versions on the card: K11 at
     K = 4, 128 (commit, batch) and 192 (window), equal at canonical value;
     K12 at the commit's, window's and hostile batch's packs, at the
     commit's with r moved into the r + n slot (_r_in_rn_slot) and at the
-    wide corrupted pack (_wide_pack), K13 at the hostile batch and the
-    edge lanes, verdict for verdict, and against _verify_py."""
+    wide corrupted pack (_wide_pack), K13 at the hostile batch, the edge
+    lanes, the Z = 0 lanes and the wide corrupted pack (_wide_ladder),
+    verdict for verdict, and against _verify_py."""
     import numpy as np
 
     from cometbft_tpu_torch import convert
@@ -2341,16 +2425,16 @@ def _secp_cases(state, torch):
             k12.append({"shape": [int(got.shape[0]), int(tabs[0].shape[-1])],
                         "max_abs_err": err, "args": args, "phase": run})
     packed = sk.pack_batch(*hostile, SECP_BATCH)
-    for label, (args, want) in (
+    for label, (args, want, mask) in (
             ("batch", (convert.secp_batch_from_numpy(packed[:-1], DEVICE),
-                       _secp_oracle(state, hostile))),
-            ("edges", _ladder_edges(torch))):
+                       _secp_oracle(state, hostile), packed[-1])),
+            ("edges", (*_ladder_edges(torch), True)),
+            ("Z = 0", (*_ladder_zero_z(torch), True)),
+            ("wide, corrupted", _wide_ladder(state))):
         got = cs.verify_ladder(*args)
         plain = sk_ops.verify_kernel_plain(*args)
         err = int((got != plain).sum())
-        verdicts = got.cpu().numpy()
-        if label == "batch":
-            verdicts = verdicts & packed[-1]
+        verdicts = got.cpu().numpy() & mask
         check(err == 0 and all(w is None or w == bool(v)
                                for w, v in zip(want, verdicts)),
               f"K13 {label}: {err} verdicts differ from plain, or from the "
@@ -2494,6 +2578,7 @@ def _work(name, case):
         per_sig = 4 + 32 * 5 + 52 * 5 + 2 * 88 + 1 + 1
         return nb * K12_SIG, tables + nb * per_sig
     if name == "secp_ladder":
+        # the G table read once; the Q tables live in shared memory only
         nb = case["args"][0].shape[-1]
         return nb * K13_SIG, 16 * 264 + nb * (2 * 88 + 2 * 256 + 2 * 88 + 2)
     if name in HASH_KERNELS:

@@ -1,6 +1,6 @@
 // GF(p), p = 2^256 - 2^32 - 977, in the card's native radix, and the
 // secp256k1 Jacobian point operations on it, one element per thread: the
-// field of K11 and K12 (secp256k1_kernels.cu).  K13 stays on fe_secp.cuh.
+// field of K11, K12 and K13 (secp256k1_kernels.cu).
 //
 // Representation: eight 32-bit words, radix 2^32, little-endian, any
 // value in [0, 2^256); an element is frozen to [0, p) only where it is
@@ -32,11 +32,11 @@
 // 2^256) as +-|e| FOLD; to_limbs writes the frozen value's 22 canonical
 // 12-bit digits.
 //
-// Point formulas and the order of their field operations are
-// fe_secp.cuh's (add-2007-bl, madd-2007-bl; the doubling, dbl-2009-l,
-// runs on thread quads in secp256k1_kernels.cu), so every coordinate
-// equals the plain version's (ops/secp256k1.py) as a field element; only
-// the limbs differ.
+// Point formulas and the order of their field operations are the plain
+// version's (ops/secp256k1.py: add-2007-bl, madd-2007-bl; the doubling,
+// dbl-2009-l, runs on thread quads in secp256k1_kernels.cu), so every
+// coordinate equals the plain version's as a field element; only the
+// limbs differ.
 //
 // The header also compiles as host C++ (the __device__ qualifiers
 // defined away), so that its arithmetic can be checked without a card.
@@ -268,6 +268,21 @@ __device__ __forceinline__ bool is_zero(const fe& a) {
 
 __device__ __forceinline__ bool eq(const fe& a, const fe& b) {
   return is_zero(sub(a, b));
+}
+
+// K13's verdict without an inverse: x(X : Y : Z) == r or, where rn_valid,
+// rn = r + n, given rz2 = r Z^2 and rnz2 = rn Z^2.  With Z != 0, X / Z^2
+// == r exactly when X == r Z^2.  With Z == 0 off infinity (an off-curve
+// input) the plain version's Fermat inverse of Z^2 is 0, so its affine x
+// is 0 and it accepts where r == 0 or rn == 0 (valid): decided so here,
+// where X == r Z^2 would accept any X == 0.
+__device__ __forceinline__ bool ladder_verdict(const fe& x, const fe& z,
+                                               const fe& r, const fe& rn,
+                                               const fe& rz2, const fe& rnz2,
+                                               bool rn_valid, bool inf) {
+  if (inf) return false;
+  if (is_zero(z)) return is_zero(r) || (rn_valid && is_zero(rn));
+  return eq(x, rz2) || (rn_valid && eq(x, rnz2));
 }
 
 // ---------------------------------------------------------------- JAX layout

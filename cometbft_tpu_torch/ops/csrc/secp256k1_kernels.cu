@@ -11,17 +11,17 @@
 // the key tables (52, 16, 3, 22, K), bool tensors as one byte.
 //
 // What bounds them on the H100: the field products (K12 about 1,230 a
-// signature, K11 about 13,000 a key, K13 about 4,600 a signature with the
-// inversion; chip_smoke.py counts them) and, for K11 and a small batch of
-// K12, the length of a dependent chain of them; for K12 also its gathers,
+// signature, K11 about 13,000 a key, K13 about 4,100 a signature;
+// chip_smoke.py counts them) and, for K11, K13 and a small batch of K12,
+// the length of a dependent chain of them; for K12 also its gathers,
 // 66 words a key-table row at a stride of K words (a 32-byte sector each).
 //
-// K11 and K12 run on fe_secp_n.cuh, GF(p) in eight 32-bit words with the
+// All three run on fe_secp_n.cuh, GF(p) in eight 32-bit words with the
 // operands in registers; they read and write the JAX layout through
-// from_limbs / to_limbs and store frozen values, so their tables equal
+// from_limbs / to_limbs and store frozen values, so K11's tables equal
 // the plain version's (ops/secp256k1.py) at canonical value, coordinate by
 // coordinate (the same formulas, their products in the same order), and
-// their verdicts the plain version's.
+// K12's and K13's verdicts the plain version's.
 //   - K11, two launches, each on thread quads: four threads share a point
 //     and run each point operation as rounds of independent products,
 //     thread l computing the l-th product of a round and the round's
@@ -66,10 +66,22 @@
 //     S, 2S, 4S and -2T S are made once a block by its first warp, on
 //     quads, into shared memory (log2 2T doublings).
 //
-// K13 runs one thread per signature on fe_secp.cuh, the JAX package's 22 x
-// 12-bit signed field, limb for limb the plain version's: 64 windows of 4
-// doublings and two exact additions over its 16-row Q table in local
-// memory, then Fermat inversion.  A first design, latency-bound.
+//   - K13, on thread quads as K11: a quad per signature holds the
+//     accumulator, and runs the plain version's ladder in its order: the
+//     16-row Q table (the (1, 1, 1) filler, Q, 2Q by jdbl_quad, 13
+//     jadd_quad), then 64 windows of 4 jdbl_quad and two exact additions
+//     (jadd_complete_quad: jadd_quad's five rounds, exposing h and rr,
+//     then the plain version's selects), the G row before the Q row.  The
+//     tables live in shared memory in native words: the G table converted
+//     once a block from the JAX layout, each signature's Q table stored
+//     by its quad, one coordinate a thread (1.5 KB a signature), so a
+//     row select reads shared memory, not a local-memory stack.  The
+//     epilogue is K12's, without the inversion: X == r Z^2 or (r + n) Z^2,
+//     with the case Z == 0 decided as the plain version's Fermat inverse
+//     (0) decides it (ladder_verdict, fe_secp_n.cuh).  The same formulas
+//     in the same order give the same field element at every step, the
+//     off-curve inputs' too, so the verdicts are the plain version's.
+//     The bound: the chain, about 1,500 rounds of independent products.
 //
 // Every launcher returns cudaGetLastError() of its launches; the Python
 // wrapper raises when it is not 0.
@@ -77,10 +89,9 @@
 #include <cuda_runtime.h>
 #include <cstdint>
 
-#include "fe_secp.cuh"
 #include "fe_secp_n.cuh"
 
-#define SECP_THREADS 32         // K13: one thread per signature
+#define SECP_THREADS 64         // K13: a quad per signature
 #define K11_THREADS 32          // K11: a quad per key or (window, key)
 #define K12_THREADS 128         // K12: T threads per signature
 
@@ -193,8 +204,10 @@ __device__ __forceinline__ jpt jdbl_quad(const jpt& p, int l) {
   return r;
 }
 
-// jadd_fast on a quad: its sixteen products in five rounds, as jdbl_quad
-__device__ __forceinline__ jpt jadd_quad(const jpt& p, const jpt& q, int l) {
+// jadd_fast on a quad: its sixteen products in five rounds, as jdbl_quad;
+// h = U2 - U1 and rr = S2 - S1 out as well, for the exact addition's tests
+__device__ __forceinline__ jpt jadd_quad_hr(const jpt& p, const jpt& q, int l,
+                                            fe& h, fe& rr) {
   const fe r1 = mul_inl(pick(l, p.z, q.z, p.y, q.y),
                         pick(l, p.z, q.z, q.z, p.z));
   const fe z1z1 = quad_bcast(r1, 0);
@@ -204,8 +217,8 @@ __device__ __forceinline__ jpt jadd_quad(const jpt& p, const jpt& q, int l) {
                         pick(l, z2z2, z1z1, z2z2, z1z1));
   const fe u1 = quad_bcast(r2, 0);
   const fe s1 = quad_bcast(r2, 2);
-  const fe h = sub(quad_bcast(r2, 1), u1);
-  const fe rr = sub(quad_bcast(r2, 3), s1);
+  h = sub(quad_bcast(r2, 1), u1);
+  rr = sub(quad_bcast(r2, 3), s1);
   const fe r3 = mul_inl(pick(l, h, rr, p.z, p.z), pick(l, h, rr, q.z, q.z));
   const fe h2 = quad_bcast(r3, 0);
   const fe r4 = mul_inl(pick(l, h, u1, quad_bcast(r3, 2), h),
@@ -219,6 +232,11 @@ __device__ __forceinline__ jpt jadd_quad(const jpt& p, const jpt& q, int l) {
   r.y = sub(quad_bcast(r5, 0), quad_bcast(r5, 1));
   r.z = quad_bcast(r4, 2);
   return r;
+}
+
+__device__ __forceinline__ jpt jadd_quad(const jpt& p, const jpt& q, int l) {
+  fe h, rr;
+  return jadd_quad_hr(p, q, l, h, rr);
 }
 
 // coordinate l < 3 of a point, frozen, in the JAX layout (3, 22, n) at
@@ -470,31 +488,74 @@ int msm_split(int64_t nb) {
   return blocks_for(nb * 8, K12_THREADS) <= room[dev] ? 8 : 4;
 }
 
-}  // namespace native
-
 // ------------------------------------------------------------------ K13
 
-namespace ladder {
-
-using namespace fesecp;
-
-__device__ __forceinline__ fe load_fe(const int32_t* p, int64_t stride,
-                                      int64_t i) {
-  fe r;
-#pragma unroll
-  for (int l = 0; l < NL; ++l) r.v[l] = p[l * stride + i];
-  return r;
-}
-
-__device__ __forceinline__ jpt load_pt(const int32_t* p, int64_t stride,
-                                       int64_t i) {
+// a table row (3 coordinates of 8 words) at word stride ws: word w of
+// coordinate c of row k at base[(k * rs + c * NW + w) * ws]
+__device__ __forceinline__ jpt load_row(const uint32_t* base, int k, int rs,
+                                        int ws) {
   jpt r;
-  r.x = load_fe(p, stride, i);
-  r.y = load_fe(p + NL * stride, stride, i);
-  r.z = load_fe(p + 2 * NL * stride, stride, i);
+#pragma unroll
+  for (int w = 0; w < NW; ++w) {
+    r.x.w[w] = base[(k * rs + w) * ws];
+    r.y.w[w] = base[(k * rs + NW + w) * ws];
+    r.z.w[w] = base[(k * rs + 2 * NW + w) * ws];
+  }
   return r;
 }
 
+// row k of a quad's Q table: thread l < 3 stores coordinate l
+__device__ __forceinline__ void store_row(uint32_t* base, int k, int ws,
+                                          const jpt& a, int l) {
+  if (l < 3) {
+    const fe v = pick(l, a.x, a.y, a.z, a.z);
+#pragma unroll
+    for (int w = 0; w < NW; ++w) base[(k * 3 * NW + l * NW + w) * ws] = v.w[w];
+  }
+}
+
+__device__ __forceinline__ jpt filler() {
+  jpt r;
+  r.x = fe_one();
+  r.y = fe_one();
+  r.z = fe_one();
+  return r;
+}
+
+// The exact addition (the plain version's jadd_complete) on a quad: the
+// doubling where h == rr == 0, q where p is at infinity, p where q is,
+// the (1, 1, 1) filler and infinity where h == 0 != rr, selected in that
+// order.  h and rr reach all four threads, so a quad agrees on every
+// branch; the doubling runs when any quad of the warp takes it (the
+// shuffles need the whole warp), and is the same value either way.
+__device__ __forceinline__ void jadd_complete_quad(jpt& p, bool& p_inf,
+                                                   const jpt& q, bool q_inf,
+                                                   int l) {
+  fe h, rr;
+  jpt out = jadd_quad_hr(p, q, l, h, rr);
+  const bool h_zero = is_zero(h);
+  const bool r_zero = is_zero(rr);
+  const bool is_dbl = h_zero && r_zero && !p_inf && !q_inf;
+  const bool is_cancel = h_zero && !r_zero && !p_inf && !q_inf;
+  if (__any_sync(0xffffffffu, is_dbl)) {
+    const jpt d = jdbl_quad<true>(p, l);
+    if (is_dbl) out = d;
+  }
+  if (p_inf) out = q;
+  if (q_inf) out = p;
+  if (is_cancel) out = filler();
+  p_inf = (p_inf && q_inf) || is_cancel;
+  p = out;
+}
+
+// The ladder's shared memory: the G table, 16 rows of GROW words (3 x 8,
+// padded by one so that the 16 rows start on 16 distinct banks), then
+// each signature's Q table, (16, 3, 8) words, the block's SIGS signatures
+// minor (the quads of a warp read their own rows: distinct banks).
+constexpr int GROW = 3 * NW + 1;
+constexpr int SIGS = SECP_THREADS / 4;
+
+// a quad per signature (see the note at the top)
 __global__ void __launch_bounds__(SECP_THREADS)
 ladder_kernel(const int32_t* __restrict__ qx, const int32_t* __restrict__ qy,
               const int32_t* __restrict__ u1_nibs,
@@ -504,43 +565,77 @@ ladder_kernel(const int32_t* __restrict__ qx, const int32_t* __restrict__ qy,
               const uint8_t* __restrict__ rn_valid,
               const int32_t* __restrict__ gtab, int64_t nb,
               uint8_t* __restrict__ out) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= nb) return;
-  // rows k Q, k = 0..15: a (1, 1, 1) filler, Q, 2Q, then 13 adds of Q
-  jpt qt[16];
-  qt[0].x = fe_one();
-  qt[0].y = fe_one();
-  qt[0].z = fe_one();
-  qt[1].x = load_fe(qx, nb, i);
-  qt[1].y = load_fe(qy, nb, i);
-  qt[1].z = fe_one();
-  qt[2] = jdbl(qt[1]);
-  for (int k = 3; k < 16; ++k) qt[k] = jadd_fast(qt[k - 1], qt[1]);
+  __shared__ uint32_t gs[16 * GROW];
+  __shared__ uint32_t qs_all[16 * 3 * NW * SIGS];
+  const int l = (int)(threadIdx.x & 3u);
+  uint32_t* qs = qs_all + (threadIdx.x >> 2);
+  const int64_t lane =
+      ((int64_t)blockIdx.x * SECP_THREADS + threadIdx.x) >> 2;
+  // the quads past the batch repeat its last signature and write nothing:
+  // every thread of a warp takes part in the shuffles
+  const int64_t i = lane < nb ? lane : nb - 1;
+  // the G table, from the JAX layout (16, 3, 22), once a block
+  for (int t = threadIdx.x; t < 16 * 3; t += SECP_THREADS) {
+    const fe v = from_limbs(gtab + t * NL, 1);
+#pragma unroll
+    for (int w = 0; w < NW; ++w) gs[(t / 3) * GROW + (t % 3) * NW + w] = v.w[w];
+  }
+  // rows k Q, k = 0..15: the (1, 1, 1) filler, Q, 2Q, then 13 adds of Q
+  jpt q1;
+  q1.x = from_limbs(qx + i, nb);
+  q1.y = from_limbs(qy + i, nb);
+  q1.z = fe_one();
+  store_row(qs, 0, SIGS, filler(), l);
+  store_row(qs, 1, SIGS, q1, l);
+  jpt prev = jdbl_quad<true>(q1, l);
+  store_row(qs, 2, SIGS, prev, l);
+#pragma unroll 1
+  for (int k = 3; k < 16; ++k) {
+    prev = jadd_quad(prev, q1, l);
+    store_row(qs, k, SIGS, prev, l);
+  }
+  __syncthreads();
 
   jpt acc;
   acc.x = fe_one();
   acc.y = fe_one();
   acc.z = fe_zero();
   bool inf = true;
+  int n1 = u1_nibs[i], n2 = u2_nibs[i];
+#pragma unroll 1
   for (int w = 0; w < NIB; ++w) {
-    const int n1 = u1_nibs[w * nb + i];
-    const int n2 = u2_nibs[w * nb + i];
-    for (int d = 0; d < 4; ++d) acc = jdbl(acc);
-    // a nibble outside 1..15 takes row 0, as the JAX select cascade does
-    const int g_row = (n1 >= 1 && n1 <= 15) ? n1 : 0;
-    const jpt g = load_pt(gtab + g_row * 3 * NL, 1, 0);
-    jadd_complete(acc, inf, g, n1 == 0);
-    const int q_row = (n2 >= 1 && n2 <= 15) ? n2 : 0;
-    jadd_complete(acc, inf, qt[q_row], n2 == 0);
+    // the next window's nibbles load while this one computes
+    const int wn = w + 1 < NIB ? w + 1 : w;
+    const int n1_next = u1_nibs[wn * nb + i], n2_next = u2_nibs[wn * nb + i];
+#pragma unroll 1
+    for (int d = 0; d < 4; ++d) acc = jdbl_quad<true>(acc, l);
+    // the G row, then the Q row; a nibble outside 1..15 takes row 0, as
+    // the plain version's select does, and 0 marks the operand infinity
+#pragma unroll 1
+    for (int s = 0; s < 2; ++s) {
+      const int n = s == 0 ? n1 : n2;
+      const int row = (n >= 1 && n <= 15) ? n : 0;
+      const jpt ent = s == 0 ? load_row(gs, row, GROW, 1)
+                             : load_row(qs, row, 3 * NW, SIGS);
+      jadd_complete_quad(acc, inf, ent, n == 0, l);
+    }
+    n1 = n1_next;
+    n2 = n2_next;
   }
-  const fe z2 = sqr(acc.z);
-  const fe x_aff = mul(acc.x, inv(z2));
-  const bool eq_r = eq(x_aff, load_fe(r_limbs, nb, i));
-  const bool eq_rn = eq(x_aff, load_fe(rn_limbs, nb, i)) && rn_valid[i];
-  out[i] = !inf && (eq_r || eq_rn);
+  // inversion-free epilogue: Z^2 (every thread), then r Z^2 and (r + n)
+  // Z^2 in one round (threads 0 and 1); the lead thread decides
+  const fe z2 = sqr_inl(acc.z);
+  const fe r = from_limbs(r_limbs + i, nb);
+  const fe rn = from_limbs(rn_limbs + i, nb);
+  const fe prod = mul_inl(pick(l, r, rn, r, r), z2);
+  const fe rz2 = quad_bcast(prod, 0);
+  const fe rnz2 = quad_bcast(prod, 1);
+  if (l == 0 && lane < nb)
+    out[i] = ladder_verdict(acc.x, acc.z, r, rn, rz2, rnz2, rn_valid[i] != 0,
+                            inf);
 }
 
-}  // namespace ladder
+}  // namespace native
 
 }  // namespace
 
@@ -604,7 +699,7 @@ int secp_ladder(const void* qx, const void* qy, const void* u1_nibs,
                 const void* rn_limbs, const void* rn_valid, const void* gtab,
                 int64_t nb, void* out, void* stream) {
   if (nb == 0) return 0;
-  ladder::ladder_kernel<<<blocks_for(nb), SECP_THREADS, 0,
+  native::ladder_kernel<<<blocks_for(4 * nb), SECP_THREADS, 0,
                           (cudaStream_t)stream>>>(
       (const int32_t*)qx, (const int32_t*)qy, (const int32_t*)u1_nibs,
       (const int32_t*)u2_nibs, (const int32_t*)r_limbs,

@@ -13,9 +13,10 @@ key walks its 52 window bases, then a quad per (window, key) builds the
 window's 16 odd rows), its tables stored frozen, equal to the plain
 version's at canonical value; K12 splits each signature's sum over 4 or
 8 threads with blinded partial sums, its verdicts the plain version's.
-K13 runs one thread per signature on ops/csrc/fe_secp.cuh, the JAX
-package's 22 x 12-bit field, limb for limb the plain version's.  Bound
-on the H100: operations (field products), reached by none of them.
+K13 runs on the same field and on thread quads, a quad per signature
+(its Q table and the G table in shared memory, an inversion-free
+epilogue), its verdicts the plain version's.  Bound on the H100:
+operations (field products), reached by none of them.
 
 Every wrapper runs its plain version (ops/secp256k1.py, `*_plain`) for a
 CPU tensor and launches its kernel for a CUDA tensor (or raises);
@@ -30,7 +31,7 @@ import torch
 from . import device as devmod
 from . import fe_secp as fs
 
-SECP_THREADS = 32        # K13's threads per block: csrc SECP_THREADS
+SECP_THREADS = 64        # K13's threads per block: csrc SECP_THREADS
 NL = fs.NLIMBS
 
 

@@ -14,9 +14,10 @@ for limb):
   |limb| <= 5000: 22 * 5000**2 = 5.5e8 < 2**31, so every product column,
   and every partial sum of one, fits in int32.
 
-The CUDA kernels (ops/csrc/fe_secp.cuh) run the same arithmetic per
-thread; the functions here are what a CPU tensor runs and what the
-kernels are held against on the card.
+The CUDA kernels (K11-K13, ops/csrc/secp256k1_kernels.cu) compute the
+same field elements in another radix (ops/csrc/fe_secp_n.cuh: eight
+32-bit words); the functions here are what a CPU tensor runs and what
+the kernels are held against on the card.
 """
 
 from __future__ import annotations

@@ -18,14 +18,15 @@ Two programs, chosen by crypto/secp256k1.msm_enabled():
   inversion-free epilogue;
 - the ladder (COMETBFT_TPU_SECP_MSM=0): verify_kernel (K13), 64 windows
   of 4 doublings and two exact additions over a static 16-row G table and
-  a per-signature 16-row Q table, then x = X / Z^2 by Fermat.
+  a per-signature 16-row Q table, then x = X / Z^2 by Fermat (the kernel
+  decides the same comparison as X == r Z^2, without the inverse).
 
 The JAX package computes all three as plain `jnp` under `lax.scan`.  In
 eager torch each would be tens of thousands of small launches, so on a
 CUDA tensor each runs its hand-written kernel (ops/cuda_secp.py,
 ops/csrc/secp256k1_kernels.cu); on a CPU tensor it runs the plain version
-below, which K13 equals limb for limb, K11 at canonical value (it stores
-frozen tables) and K12 verdict for verdict.
+below, which K11 equals at canonical value (it stores frozen tables)
+and K12 and K13 verdict for verdict.
 """
 
 from __future__ import annotations

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Time the port's kernels K1 (decompress), K2 (table17_neg), K3
 (msm_window_major), K4 (fold_verify), K5 (msm_window_major_grouped), K6
-(msm_window_loop), K7 (select_tree), K11 (secp_q_tables) and K12
-(secp_msm_verify) of one checkout on the card, at the main path's
-widths, and optionally count the instruction mix of K1's and K2's
-longest loops.
+(msm_window_loop), K7 (select_tree), K11 (secp_q_tables), K12
+(secp_msm_verify) and K13 (secp_ladder) of one checkout on the card, at
+the main path's widths, and optionally count the instruction mix of K1's
+and K2's longest loops.
 
     python3 cometbft_tpu_torch/tools/time_kernels.py [--root DIR] [--sass]
 
@@ -39,7 +39,13 @@ K7 ran on quads) is recorded as "refused".  Each time is the median over
 20.  Before timing, each kernel is held against its plain version: K1
 and K2 at W = 129, K4's verdict on a 10 + 10 set, K5 at 4 windows x 129
 lanes, group 2, K6 and K7 at 4 windows x 1,100 lanes (a ragged last
-block) with blocks of 512 and 2,048 lanes.  --sass disassembles
+block) with blocks of 512 and 2,048 lanes.  K13 is launched through its
+C function into a preallocated verdict at B = 4,096, at chip_smoke.py's
+16 edge lanes (taken from the chip_smoke.py beside this script's
+package) and at 16,384, each first held against its plain version and
+the lanes' own verdicts: 64 lanes from the host's group law (u1, u2
+random, Q one of four keys, r = x(u1 G + u2 Q), a third with r + 1),
+tiled to the width, 10 calls a run.  --sass disassembles
 the built library with cuobjdump and prints, for each of the two
 kernels, the opcode counts of its longest loop (a backward branch and
 its target).  Prints one JSON line.
@@ -59,6 +65,7 @@ from pathlib import Path
 WIDTHS = (128, 5120, 8192, 10240)
 SECP_KEYS = (4, 128, 192)                      # K11: keys
 SECP_SHAPES = ((256, 128), (4096, 128), (16384, 192))   # K12: (B, K)
+LADDER_SHAPES = (4096, 16, 16384)              # K13: B (16: the edge lanes)
 K4_SHAPES = ((4, 4), (4, 10), (10, 8))     # commit, window, batch
 LOOP_BLKS = (512, 2048)                    # BLK for K6 and K7
 
@@ -218,6 +225,77 @@ def _secp(torch, rec):
     return ok and k11_err == 0 and k12_ok
 
 
+def _ladder_tile(nb, rng):
+    """K13 inputs of nb lanes (numpy, the JAX layout) and their verdicts:
+    64 lanes from the host's group law, tiled to the width."""
+    import numpy as np
+
+    from cometbft_tpu_torch.crypto import secp256k1 as sk
+    from cometbft_tpu_torch.ops import fe_secp as fs
+
+    keys = [sk._jaffine(sk._jmul(rng.randrange(1, sk.N), sk._G))
+            for _ in range(4)]
+    cols, want = [], []
+    for j in range(64):
+        q, u1, u2 = keys[j % 4], rng.randrange(1, sk.N), rng.randrange(1, sk.N)
+        x = sk._jaffine(sk._jadd(sk._jmul(u1, sk._G),
+                                 sk._jmul(u2, q + (1,))))[0]
+        r = x % sk.N + (1 if j % 3 == 1 else 0)
+        nibs = [[(u >> (4 * (63 - w))) & 0xF for w in range(64)]
+                for u in (u1, u2)]
+        cols.append((fs.int_to_limbs(q[0]), fs.int_to_limbs(q[1]), *nibs,
+                     fs.int_to_limbs(r), fs.int_to_limbs(r + sk.N),
+                     r + sk.N < sk.P))
+        want.append(j % 3 != 1)
+    reps = -(-nb // 64)
+    arrs = [np.tile(np.stack([c[k] for c in cols], -1), reps)[..., :nb]
+            for k in range(7)]
+    return [np.ascontiguousarray(a.astype(np.int32 if k < 6 else bool))
+            for k, a in enumerate(arrs)], (want * reps)[:nb]
+
+
+def _ladder(torch, rec):
+    """K13 of the checkout: held against its plain version and the lanes'
+    verdicts at each shape, then timed by raw launches.  Returns whether
+    every shape held."""
+    import importlib.util
+    import random
+
+    from cometbft_tpu_torch import convert
+    from cometbft_tpu_torch.ops import _build
+    from cometbft_tpu_torch.ops import device as devmod
+    from cometbft_tpu_torch.ops import secp256k1 as sko
+
+    lib = _build.load("secp256k1_kernels")
+    dev = torch.device("cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    gtab = sko.g_tables_on(dev)[2]
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[2] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    rng = random.Random(20261018)
+    ok = True
+    rec.update(k13_verdicts_equal={}, k13_ms={})
+    for nb in LADDER_SHAPES:
+        if nb == 16:
+            args, want = smoke._ladder_edges(torch)
+        else:
+            arrs, want = _ladder_tile(nb, rng)
+            args = convert.secp_batch_from_numpy(arrs, dev)
+        out = torch.empty((nb,), dtype=torch.bool, device=dev)
+        call = (*map(devmod.ptr, (*args, gtab)), nb, devmod.ptr(out), stream)
+        held = lib.secp_ladder(*call) == 0
+        plain = sko.verify_kernel_plain(*args)
+        held = (held and bool((out == plain).all())
+                and all(w is None or w == v
+                        for w, v in zip(want, out.cpu().tolist())))
+        rec["k13_verdicts_equal"][nb] = held
+        rec["k13_ms"][nb] = _time(torch, lib.secp_ladder, call, inner=10)
+        ok = ok and held
+    return ok
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
@@ -350,7 +428,7 @@ def main() -> int:
                 (devmod.ptr(tab), devmod.ptr(mag0), devmod.ptr(neg0), w, blk,
                  out_l, nout, devmod.ptr(lout), stream))
         cm.BLK = saved_blk
-    secp_ok = _secp(torch, rec)
+    secp_ok = _secp(torch, rec) and _ladder(torch, rec)
     if args.sass:
         so = _build._target("ed25519_kernels")
         tool = Path(_build.nvcc()).parent / "cuobjdump"

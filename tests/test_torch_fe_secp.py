@@ -1,11 +1,7 @@
 """The port's secp256k1 field layer (cometbft_tpu_torch/ops/fe_secp.py)
 against Python integers and the JAX package's ops/fe_secp.py, limb for
 limb: canonical and weak-form (negative-limb) operands, a long chain of
-products, the exact freeze at the edges of [0, p), Fermat inversion, and
-the constants the CUDA header (ops/csrc/fe_secp.cuh) repeats."""
-
-import re
-from pathlib import Path
+products, the exact freeze at the edges of [0, p) and Fermat inversion."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -55,20 +51,6 @@ def test_constants_match_jax_package():
     for v in _vals(6, 8):
         assert (tfs.int_to_limbs(v) == jfs.int_to_limbs(v)).all()
         assert tfs.limbs_to_int(tfs.int_to_limbs(v)) == v
-
-
-def test_cuda_header_constants():
-    src = (Path(tfs.__file__).parent / "csrc" / "fe_secp.cuh").read_text()
-
-    def array(name):
-        m = re.search(name + r"\[[^\]]*\] = \{([^}]*)\}", src)
-        return [int(x.strip().rstrip("u"), 0)
-                for x in m.group(1).split(",") if x.strip()]
-
-    assert array("PAD_17P") == tfs._PAD_17P.tolist()
-    assert array("P_CANON") == tfs._P_CANON.tolist()
-    words = array("PM2_WORDS")
-    assert sum(w << (32 * i) for i, w in enumerate(words)) == P - 2
 
 
 @pytest.mark.parametrize("op", ["add", "sub", "mul", "sqr", "neg",
