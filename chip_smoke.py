@@ -2,7 +2,9 @@
 """Drive the PyTorch/CUDA port's commit-verification paths on one NVIDIA
 card (Ed25519 in each of its MSM engine configurations, the device-hash
 route, secp256k1 and mixed-key commits), and hold each of its CUDA
-kernels against its plain torch version.
+kernels against its plain torch version.  Every per-signature
+localization of an Ed25519 reject (ops/ed25519.verify_kernel) must launch
+exactly one K1 and one K14.
 
     python3 chip_smoke.py
 
@@ -15,17 +17,17 @@ result):
              spills;
   2. commit  one 150-validator commit through verify_commit_light on the
              card: accept, one tampered signature (ErrInvalidSignature
-             naming its index), a commit below +2/3;
+             naming its index; one localization), a commit below +2/3;
   3. window  a blocksync window — 48 heights x 150 validators collected
              with DeferredSigBatch — three times with one validator set
              (whole program, then the cached-A program once the
              ATableCache holds the set's tables), then a window with one
-             bad signature at a known height;
+             bad signature at a known height (one localization);
   4. batch   8,192 signatures under distinct keys through
              create_batch_verifier("ed25519", device="cuda"): clean, then
              with an s >= L signature, non-canonical-y keys and a tampered
-             signature, every verdict held against the pure-Python
-             ed25519_ref.verify;
+             signature (one localization), every verdict held against
+             the pure-Python ed25519_ref.verify;
   5. mesh    the multi-device path on device lists [cuda:(i % cards)
              for i in range(n)] (n logical shards on one card): K8
              (ops/msm_shard.rlc_verify_sharded) on the window's and the
@@ -35,8 +37,9 @@ result):
              4,848-signature window split over 2 and 4 devices
              (crypto/mesh.split_rlc_verify: only the bad height's chunk
              rejects), then localized by the per-signature program split
-             over them (verify_batch_mesh), and the hostile 8,192 batch
-             the same way against the unsharded verify_kernel; a placed
+             over them (verify_batch_mesh: n K1 and n K14), and the
+             hostile 8,192 batch the same way against the unsharded
+             verify_kernel; a placed
              cached-A call made twice, the second hitting its device's
              entry; K8's gathered partials on the window's R side at
              n = 4 against the same function over four "cpu" shards;
@@ -48,7 +51,7 @@ result):
              ed25519_ref.verify's, the bad signature localized by
              verify_hash_kernel, each RLC call launching one K9 beside the
              K1-K4 of the host-hash program at the same widths and each
-             localization one K9 and one K1; a message over
+             localization one K9, one K1 and one K14; a message over
              DEVICE_HASH_MAX_BLOCKS raising ValueError; a 10,000-validator
              ValidatorSet.hash() equal to the host Merkle root with one
              K10 launch, and sum_sha256_many of 511 messages with none;
@@ -71,7 +74,7 @@ result):
              are exact (one K12 a MSM call, K11 on a key-table miss only,
              one K13 a ladder call; the mixed commit's ed25519 part the
              whole RLC program, 2 K1, 2 K2, 2 K3 and 1 K4, and one K1
-             for its localization); every verdict is _verify_py's
+             and one K14 for its localization); every verdict is _verify_py's
              (ed25519: ed25519_ref.verify's).  Outside the count: the
              host waits inside verify_msm_async (none allowed), the
              split's launch-before-read order, the host packing time;
@@ -86,7 +89,8 @@ result):
              the window (accept and the bad height), and for the two
              window_loop configurations and grouped_g4 the clean 8,192
              batch, each verdict the default engine's; each must launch
-             exactly its configuration's kernels;
+             exactly its configuration's kernels (and K1 + K14 for each
+             localization);
   9. kernels each kernel vs its plain version on the card, at the shapes
              phases 2-4 gave it (exact integer equality; K1 at the four
              main-path widths and on hostile encodings, K1 and K2 also at
@@ -116,17 +120,27 @@ result):
              zeros) and at a 16,384-lane pack of the same signatures
              with a third of its lanes corrupted (s, r, a nibble, the
              key) and r + n lanes (_wide_ladder), verdict for verdict
-             and against the host;
+             and against the host; K14 at the tampered commit's,
+             the bad window's (16,384 lanes) and the hostile batch's
+             packs, at 32 edge lanes in two buckets of 16
+             (_persig_edges: decompression failures, the identity key,
+             the 8 small-order points as A and as R, torsion in R, s =
+             L - 1, nibbles all 0 and all 15) and at 16,384 real
+             signatures with a third corrupted (s, R, a nibble of h, the
+             key; and its first 4,096 lanes), verdict for verdict and
+             accumulator for accumulator (limb for limb), and against
+             ed25519_ref;
  10. timing  each kernel's median time over runs of 10 launches back to
              back and each plain version's median time per call (CUDA
              events), with the bound the card could reach for the same
              work; for K9-K13 also their time launched through the C
-             function into preallocated outputs (raw_ms, no wrapper), K11's
+             function into preallocated outputs (raw_ms, no wrapper;
+             K14 too, at 16 / 256 / 4,096 / 8,192 / 16,384), K11's
              walk and rows apart (raw_walk_ms, raw_rows_ms), for K9 and
              K10 hashlib's time on the host for the same messages.
 The launch counters are reset before phase 2 and read after phase 4
-(the default engine: every one of K1-K4 must launch there, none of
-K5-K8), reset before and read after phase 5's path (its comparisons
+(the default engine: every one of K1-K4 and K14 must launch there, none
+of K5-K8), reset before and read after phase 5's path (its comparisons
 with the plain version excluded), and reset before and read after each
 configuration of phase 8, reset before and read after phase 6's path
 (its host-hash comparisons excluded), and reset before and read after
@@ -181,9 +195,14 @@ KERNELS = {
                         "cometbft_tpu/ops/secp256k1.py:360"),
     "secp_ladder": ("secp256k1_kernels.cu",
                     "cometbft_tpu/ops/secp256k1.py:186"),
+    "ed25519_verify_ladder": ("ed25519_persig.cu",
+                              "cometbft_tpu/ops/ed25519.py:238"),
 }
 DEFAULT_KERNELS = {"ed25519_decompress", "ed25519_table17_neg",
-                   "ed25519_msm_window_major", "ed25519_fold_verify"}
+                   "ed25519_msm_window_major", "ed25519_fold_verify",
+                   "ed25519_verify_ladder"}
+# what one per-signature localization (ops/ed25519.verify_kernel) launches
+PERSIG_LAUNCHES = {"ed25519_decompress": 1, "ed25519_verify_ladder": 1}
 # K8 runs K1-K4 per shard; its two entry points count their own calls
 K8 = ("ed25519_sharded_msm", "ed25519_rlc_verify_sharded")
 HASH_KERNELS = {"sha512_blocks", "sha256_blocks"}
@@ -195,9 +214,10 @@ MIXED_ED, MIXED_SECP = 9000, 1000   # bench.py's bench_mixed fixture
 # the mixed commit's ed25519 part, one bad signature among 9,000 keys
 # the A-table cache has not seen: the whole RLC program (K1 and K2 on
 # the A and R sides, K3 on each side, one K4), then the per-signature
-# localization's one K1 over A || R
+# localization's one K1 over A || R and one K14
 MIXED_ED_LAUNCHES = {"ed25519_decompress": 3, "ed25519_table17_neg": 2,
-                     "ed25519_msm_window_major": 2, "ed25519_fold_verify": 1}
+                     "ed25519_msm_window_major": 2, "ed25519_fold_verify": 1,
+                     "ed25519_verify_ladder": 1}
 SECP_ABSENT = N_VALS - (2 * N_VALS // 3 + 1)   # 49 absent of each window commit
 WIDE_LANES, WIDE_KEYS = 16384, 192   # K12's corrupted wide pack
 N_VALSET = 10_000              # ValidatorSet.hash(): upstream's largest sets
@@ -211,23 +231,26 @@ NVLINK_BYTES_PER_S = 450e9     # one direction, H100 SXM data sheet
 DEFAULT_ENGINE = {"USE_PALLAS_MSM_MAJOR": True, "USE_PALLAS_MSM_LOOP": True,
                   "USE_PALLAS_TREE": False, "USE_PALLAS_FOLD": True,
                   "WIN_GROUP": 1, "BLK": 512}
-_TABLES = {"ed25519_decompress", "ed25519_table17_neg"}
+# every configuration: K1 and K2 of the RLC program, K14 of each
+# localization
+_SHARED = {"ed25519_decompress", "ed25519_table17_neg",
+           "ed25519_verify_ladder"}
 ENGINES = [
     ("window_loop", {"USE_PALLAS_MSM_MAJOR": False},
-     _TABLES | {"ed25519_msm_window_loop", "ed25519_fold_verify"}, True),
+     _SHARED | {"ed25519_msm_window_loop", "ed25519_fold_verify"}, True),
     ("window_loop_blk2048", {"USE_PALLAS_MSM_MAJOR": False, "BLK": 2048},
-     _TABLES | {"ed25519_msm_window_loop", "ed25519_fold_verify"}, True),
+     _SHARED | {"ed25519_msm_window_loop", "ed25519_fold_verify"}, True),
     ("grouped_g4", {"WIN_GROUP": 4},
-     _TABLES | {"ed25519_msm_window_major_grouped", "ed25519_fold_verify"},
+     _SHARED | {"ed25519_msm_window_major_grouped", "ed25519_fold_verify"},
      True),
     ("grouped_g13", {"WIN_GROUP": 13},
-     _TABLES | {"ed25519_msm_window_major_grouped", "ed25519_fold_verify"},
+     _SHARED | {"ed25519_msm_window_major_grouped", "ed25519_fold_verify"},
      False),
     ("select_tree", {"USE_PALLAS_MSM_MAJOR": False,
                      "USE_PALLAS_MSM_LOOP": False, "USE_PALLAS_TREE": True},
-     _TABLES | {"ed25519_select_tree"}, False),
+     _SHARED | {"ed25519_select_tree"}, False),
     ("fold_off", {"USE_PALLAS_FOLD": False},
-     _TABLES | {"ed25519_msm_window_major"}, False),
+     _SHARED | {"ed25519_msm_window_major"}, False),
 ]
 
 # field products per kernel step, as int32 multiply-adds (mul 400,
@@ -266,6 +289,12 @@ K11_KEY = 52 * 5 * JDBL + 52 * (JDBL + 15 * JADD)
 # correction, 52 adds from the key's table and the 2^260 Q and -S
 # corrections, the epilogue's Z^2, r Z^2 and (r + n) Z^2
 K12_SIG = 33 * JMADD + 54 * JADD + S256 + 2 * M256
+# K14 per signature (Ed25519 products, MUL and SQR): the -A table (its
+# cached form, 14 cached adds, 14 row conversions; row 0 is constant), 64
+# windows of 3 doublings without T, one with T and 2 cached adds, then
+# to_cached(-R), a cached add and 3 cofactor doublings
+PERSIG_SIG = ((1 + 14 * 8 + 14) * MUL + 64 * (3 * DBL + DBL_T + 16 * MUL)
+              + MUL + 8 * MUL + 3 * DBL)
 # per signature: the 16-row Q table (a doubling, 13 adds), 64 windows of
 # 4 doublings and 2 adds, the epilogue's Z^2, r Z^2 and (r + n) Z^2 (no
 # inversion: X == r Z^2, as K12 decides it)
@@ -400,9 +429,14 @@ def phase_build(state, torch):
             v.get(k, 0) == 0 for v in found.values()
             for k in ("stack_frame", "spill_stores", "spill_loads")),
             f"{kernel}: ptxas reports a stack or spills: {found}")
+    k14 = _ptxas_of(state, "ed25519_verify_ladder")
+    check(len(k14) == 1 and all(v.get("spill_stores", 0) == 0 and
+                                v.get("spill_loads", 0) == 0
+                                for v in k14.values()),
+          f"ed25519_verify_ladder: ptxas reports spills: {k14}")
     return {"card": card, "build_seconds": time.perf_counter() - t0,
             "sources": sources, "max_sm_clock_mhz": float(clock),
-            "ptxas": ptxas}
+            "k14_ptxas": k14, "ptxas": ptxas}
 
 
 def _ptxas(log: str) -> dict:
@@ -502,7 +536,7 @@ def phase_fixtures(state, torch):
 
 def _kernels():
     from cometbft_tpu_torch.ops import cuda_decompress, cuda_msm, msm_shard
-    from cometbft_tpu_torch.ops import cuda_secp, sha2
+    from cometbft_tpu_torch.ops import cuda_persig, cuda_secp, sha2
     return {"secp_q_tables": cuda_secp.q_msm_tables,
             "secp_msm_verify": cuda_secp.msm_verify,
             "secp_ladder": cuda_secp.verify_ladder,
@@ -517,7 +551,8 @@ def _kernels():
             "ed25519_msm_window_major_grouped":
                 cuda_msm.msm_window_major_grouped,
             "ed25519_msm_window_loop": cuda_msm.msm_window_loop,
-            "ed25519_select_tree": cuda_msm.select_tree}
+            "ed25519_select_tree": cuda_msm.select_tree,
+            "ed25519_verify_ladder": cuda_persig.verify_ladder}
 
 
 def _counts():
@@ -541,26 +576,46 @@ def _set_engine(flags):
 
 class _Timed:
     """Wraps a module function to record its calls' wall seconds (each
-    call ends in a host sync: a verdict read back)."""
+    call ends in a host sync: a verdict read back) and the kernels each
+    call launched."""
 
     def __init__(self, mod, attr, torch):
         self.mod, self.attr, self.fn = mod, attr, getattr(mod, attr)
         self.torch, self.calls, self.seconds = torch, 0, 0.0
+        self.launched = []
 
     def __enter__(self):
         def wrapped(*a, **k):
+            before = _counts()
             t0 = time.perf_counter()
             out = self.fn(*a, **k)
             if DEVICE == "cuda":
                 self.torch.cuda.synchronize()
             self.seconds += time.perf_counter() - t0
             self.calls += 1
+            self.launched.append(_launched(before, _counts()))
             return out
         setattr(self.mod, self.attr, wrapped)
         return self
 
     def __exit__(self, *exc):
         setattr(self.mod, self.attr, self.fn)
+
+
+def _persig(torch):
+    """_Timed on ops/ed25519.verify_kernel, the per-signature
+    localization."""
+    from cometbft_tpu_torch.ops import ed25519 as dev
+    return _Timed(dev, "verify_kernel", torch)
+
+
+def _check_persig(persig, label, calls=1, want=None):
+    """`calls` localizations, each launching exactly `want` (one K1 and
+    one K14)."""
+    want = PERSIG_LAUNCHES if want is None else want
+    check(persig.calls == calls and all(x == want for x in persig.launched),
+          f"{label}: {persig.calls} localizations launching "
+          f"{persig.launched}, not {calls} launching {want} each")
 
 
 def _with_sig(commit, idx, byte, bit):
@@ -577,7 +632,10 @@ def _with_sig(commit, idx, byte, bit):
 
 def _commit_accept_reject(state, val):
     """The 150-validator commit: accept, then one tampered signature
-    whose error names its index.  (accept seconds, reject seconds)."""
+    whose error names its index, localized by one K1 and one K14.
+    (accept seconds, reject seconds)."""
+    import torch
+
     vals = state["vals"]
     bid, commit = state["commits"][5]
     t0 = time.perf_counter()
@@ -586,13 +644,15 @@ def _commit_accept_reject(state, val):
     bad_idx = N_VALS // 4
     tampered, s = _with_sig(commit, bad_idx, 11, 0x40)
     t0 = time.perf_counter()
-    try:
-        val.verify_commit_light(CHAIN_ID, vals, bid, 5, tampered,
-                                device=DEVICE)
-        raise PhaseError("tampered commit accepted")
-    except val.ErrInvalidSignature as e:
-        check(str(e).startswith(f"wrong signature (#{bad_idx}): "
-                                f"{s.hex()}"), f"wrong message {e}")
+    with _persig(torch) as persig:
+        try:
+            val.verify_commit_light(CHAIN_ID, vals, bid, 5, tampered,
+                                    device=DEVICE)
+            raise PhaseError("tampered commit accepted")
+        except val.ErrInvalidSignature as e:
+            check(str(e).startswith(f"wrong signature (#{bad_idx}): "
+                                    f"{s.hex()}"), f"wrong message {e}")
+    _check_persig(persig, "commit reject")
     return accept_s, time.perf_counter() - t0
 
 
@@ -636,27 +696,33 @@ def _run_window(state, val, commits):
 
 def _window_reject(state, val, commits):
     """The window with one bad signature at a known height: the error
-    must name the height.  (seconds, the bad window's commits)."""
+    must name the height, after one localization (one K1 and one K14).
+    (seconds, the bad window's commits, the bad height, the
+    localization's seconds)."""
+    import torch
+
     bad_h = state["heights"][len(state["heights"]) // 3]
     bid, commit = state["commits"][bad_h]
     bad_commit, s = _with_sig(commit, 5, 40, 0x01)
     bad = [(h, (b, bad_commit if h == bad_h else c))
            for h, (b, c) in commits]
     t0 = time.perf_counter()
-    try:
-        _run_window(state, val, bad)
-        raise PhaseError("bad window accepted")
-    except val.ErrInvalidSignature as e:
-        check(getattr(e, "failed_ctx", None) == bad_h,
-              f"blamed {getattr(e, 'failed_ctx', None)}, not {bad_h}")
-        check(str(e) == f"wrong signature in commit at height {bad_h}: "
-              f"{s.hex()}", f"wrong message {e}")
-    return time.perf_counter() - t0, bad, bad_h
+    with _persig(torch) as persig:
+        try:
+            _run_window(state, val, bad)
+            raise PhaseError("bad window accepted")
+        except val.ErrInvalidSignature as e:
+            check(getattr(e, "failed_ctx", None) == bad_h,
+                  f"blamed {getattr(e, 'failed_ctx', None)}, not {bad_h}")
+            check(str(e) == f"wrong signature in commit at height {bad_h}: "
+                  f"{s.hex()}", f"wrong message {e}")
+    seconds = time.perf_counter() - t0
+    _check_persig(persig, "window reject")
+    return seconds, bad, bad_h, persig.seconds
 
 
 def phase_window(state, torch):
     from cometbft_tpu_torch.crypto import ed25519 as ed
-    from cometbft_tpu_torch.ops import ed25519 as dev
     from cometbft_tpu_torch.types import validation as val
 
     commits = [(h, state["commits"][h]) for h in state["heights"]]
@@ -684,8 +750,7 @@ def phase_window(state, torch):
           f"programs {[r['program'] for r in runs]}")
     check(runs[2]["cache_hit"], "third window missed the ATableCache")
 
-    with _Timed(dev, "verify_kernel", torch) as persig:
-        reject_s, bad, bad_h = _window_reject(state, val, commits)
+    reject_s, bad, bad_h, persig_s = _window_reject(state, val, commits)
     state["window_bad"] = (bad, bad_h)
     state["window_packed_bad"] = ed.pack_rlc(*_window_items(state, bad))
     state["window_packed"] = ed.pack_rlc(*_window_items(state, commits))
@@ -694,7 +759,7 @@ def phase_window(state, torch):
     end = _counts()
     return {"runs": runs, "bad_height": bad_h, "reject_seconds": reject_s,
             "launches": {k: end[k] - start[k] for k in end},
-            "persig_seconds": persig.seconds, "persig_calls": persig.calls}
+            "persig_seconds": persig_s}
 
 
 def _window_items(state, commits):
@@ -729,7 +794,6 @@ def _clean_batch(state, torch):
 def phase_batch(state, torch):
     from cometbft_tpu_torch.crypto import batch as cb
     from cometbft_tpu_torch.crypto import ed25519 as ed
-    from cometbft_tpu_torch.ops import ed25519 as dev
 
     ref = state["ref"]
     before = _counts()
@@ -752,10 +816,11 @@ def phase_batch(state, torch):
     bv = cb.create_batch_verifier("ed25519", n_hint=N_BATCH, device=DEVICE)
     for p, m, s in zip(pubs, msgs, sigs):
         bv.add(p, m, s)
-    with _Timed(dev, "verify_kernel", torch) as persig:
+    with _persig(torch) as persig:
         t0 = time.perf_counter()
         ok, verdicts = bv.verify()
         hostile_s = time.perf_counter() - t0
+    _check_persig(persig, "hostile batch")
     t0 = time.perf_counter()
     want = _pool_map(state["pool"], _verify, list(zip(pubs, msgs, sigs)))
     oracle_s = time.perf_counter() - t0
@@ -929,7 +994,8 @@ def _split_window(state, torch):
                 launched = _launched(before, _counts())
                 check([i for i, v in enumerate(verdicts) if not v] == [bad_i],
                       f"localized over {n}: not exactly index {bad_i}")
-                check(launched == {"ed25519_decompress": n},
+                check(launched == {"ed25519_decompress": n,
+                                   "ed25519_verify_ladder": n},
                       f"localization over {n} launched {launched}")
             rows.append(rec)
     return rows, bad_i
@@ -952,11 +1018,16 @@ def _hostile_split(state, torch):
             .cpu().numpy() & valid)[:n].tolist()
     rows = []
     for shards in MESH_SHARDS[1:]:
+        before = _counts()
         t0 = time.perf_counter()
         got = mesh.verify_batch_mesh(pubs, parsed,
                                      _mesh_devices(torch, shards))
+        launched = _launched(before, _counts())
         check(got == want, f"hostile batch over {shards} differs from the "
               "unsharded per-signature program")
+        check(launched == {"ed25519_decompress": shards,
+                           "ed25519_verify_ladder": shards},
+              f"hostile batch over {shards} launched {launched}")
         rows.append({"shards": shards, "ms": (time.perf_counter() - t0) * 1e3,
                      "rejected": [i for i, v in enumerate(got) if not v]})
     return rows
@@ -1329,8 +1400,7 @@ def phase_hash(state, torch):
             if label != "window_bad":    # the window's width once
                 k9_inputs.append((label, packed[5:8], ram))
         if not ok:
-            need = _merge(need, {"sha512_blocks": 1,
-                                 "ed25519_decompress": 1})
+            need = _merge(need, {"sha512_blocks": 1, **PERSIG_LAUNCHES})
         check(rec["launches"] == need, f"hash {label} launched "
               f"{rec['launches']}, not {need}")
         if label == "window_bad":
@@ -1765,8 +1835,9 @@ def phase_engines(state, torch):
                 rec["window_seconds"] = time.perf_counter() - t1
                 rec["window_sigs_per_s"] = n / rec["window_seconds"]
                 rec["window_rlc_verify_seconds"] = rlc.seconds
-            rec["window_reject_seconds"], _, _ = _window_reject(
-                state, val, commits)
+            (rec["window_reject_seconds"], _, _,
+             rec["window_persig_seconds"]) = _window_reject(state, val,
+                                                            commits)
             if with_batch:
                 rec["batch_seconds"], rec["batch_rlc_verify_seconds"] = \
                     _clean_batch(state, torch)
@@ -2038,10 +2109,12 @@ def phase_kernels(state, torch):
     cases["ed25519_fold_verify"] = k4
     cases["sha512_blocks"], cases["sha256_blocks"] = _sha_cases(state, torch)
     cases.update(_secp_cases(state, torch))
+    cases["ed25519_verify_ladder"] = _persig_cases(state, torch)
     for name, fn in _kernels().items():  # comparison launches do not count
         fn.launches = saved[name]
     state["cases"] = cases
-    keep = ("shape", "max_abs_err", "group", "vs_k3", "blk", "row")
+    keep = ("shape", "max_abs_err", "group", "vs_k3", "blk", "row",
+            "rejected")
     return {"tolerance": "exact: integer limbs, frozen and projective",
             "compared": {k: [{"phase": c.get("phase", "batch"),
                               **{f: c[f] for f in keep if f in c}}
@@ -2117,6 +2190,233 @@ def _sha_cases(state, torch):
     k10 = [_sha_case(torch, "sha256_blocks", "validator leaves", leaves,
                      sha2.pad_sha256(leaves)), out["sha256_blocks"]]
     return k9, k10
+
+
+# K14's edge lanes: two buckets of 16
+PERSIG_EDGE_WIDTH = 16
+ALL_15 = (1 << 256) - 1              # every nibble 15
+
+
+def _persig_edges(ref):
+    """K14's edge lanes, 32 of them: [(label, A encoding, R encoding, s,
+    h, (pubkey, msg, sig) or None)], made from the seed with `ref` (an
+    ed25519_ref module).  A signature lane has h = SHA512(R||A||M) mod L
+    and its triple; a lane with a triple of None takes any 256-bit s and
+    h (limbs only: all nibbles 0, all 15).  Lanes: a valid signature; A,
+    R, and both that fail to decompress; the identity key as y = 1 and as
+    the non-canonical y = p + 1 (R = sB); R with an 8-torsion component
+    (valid only under the cofactored equation); each of the 8 small-order
+    points as A (R = sB) and as R (s = h a); s = L - 1 (valid, and
+    tampered); s = h = 0; s = h = all 15s; h = all 15s; the
+    non-canonical key y = p + 3; a second key's valid signature."""
+    L, B = ref.L, ref.B
+
+    def scalar(*parts):
+        return int.from_bytes(_seed("persig", *parts), "little") % L
+
+    def enc(pt):
+        return ref.point_compress(pt)
+
+    def h_of(r_enc, a_enc, msg):
+        return int.from_bytes(hashlib.sha512(r_enc + a_enc + msg).digest(),
+                              "little") % L
+
+    def minus(p, q):
+        return ref.point_add(p, ref.point_neg(q))
+
+    lanes = []
+
+    def sig_lane(label, a_enc, r_enc, s, msg):
+        sig = r_enc + s.to_bytes(32, "little")
+        lanes.append((label, a_enc, r_enc, s, h_of(r_enc, a_enc, msg),
+                      (a_enc, msg, sig)))
+
+    def limb_lane(label, a_enc, s, h, r_enc=None):
+        a_pt = ref.point_decompress(a_enc)
+        if r_enc is None:                   # R = sB - hA: valid
+            r_enc = enc(minus(ref.point_mul(s, B), ref.point_mul(h, a_pt)))
+        lanes.append((label, a_enc, r_enc, s, h, None))
+
+    seed = _seed("persig key")
+    a = ref._clamp(hashlib.sha512(seed).digest()[:32])
+    pk = ref.pubkey_from_seed(seed)
+    msg = b"persig edge"
+    sig0 = ref.sign(seed, msg)
+    r0, s0 = sig0[:32], int.from_bytes(sig0[32:], "little")
+    bad_y = [y.to_bytes(32, "little") for y in range(2, 64)
+             if ref.point_decompress(y.to_bytes(32, "little")) is None]
+    t8 = ref.point_decompress(bytes.fromhex(TORSION8))
+    ident = (1).to_bytes(32, "little")
+    ident_nc = (ref.P + 1).to_bytes(32, "little")
+    sig_lane("valid", pk, r0, s0, msg)
+    sig_lane("A fails to decompress", bad_y[0], r0, s0, msg)
+    sig_lane("R fails to decompress", pk, bad_y[1], s0, msg)
+    s = scalar("identity")
+    for label, key in (("identity key y = 1", ident),
+                       ("identity key y = p + 1", ident_nc)):
+        sig_lane(label, key, enc(ref.point_mul(s, B)), s, msg)
+    r = scalar("torsion")
+    r_enc = enc(ref.point_add(ref.point_mul(r, B), t8))
+    sig_lane("torsion in R", pk, r_enc,
+             (r + h_of(r_enc, pk, msg) * a) % L, msg)
+    for k in range(8):
+        small = enc(ref.point_mul(k, t8))
+        s = scalar("small A", k)
+        sig_lane(f"small-order A {k}", small, enc(ref.point_mul(s, B)), s,
+                 msg)
+    for k in range(8):
+        small = enc(ref.point_mul(k, t8))
+        sig_lane(f"small-order R {k}", pk, small,
+                 h_of(small, pk, msg) * a % L, msg)
+    sig_lane("s = L - 1", ident_nc, enc(ref.point_mul(L - 1, B)), L - 1, msg)
+    sig_lane("s = L - 1, tampered", pk, r0, L - 1, msg)
+    limb_lane("s = h = 0, R small-order", pk, 0, 0, enc(t8))
+    limb_lane("s = h = 0, R = B", pk, 0, 0, enc(B))
+    limb_lane("all nibbles 15", pk, ALL_15, ALL_15)
+    limb_lane("all nibbles 15, R = B", pk, ALL_15, ALL_15, enc(B))
+    limb_lane("h nibbles all 15", pk, scalar("h15"), ALL_15)
+    limb_lane("A and R fail to decompress", bad_y[0], scalar("s"),
+              scalar("h"), bad_y[1])
+    limb_lane("key y = p + 3", (ref.P + 3).to_bytes(32, "little"),
+              scalar("p3 s"), scalar("p3 h"))
+    seed2 = _seed("persig key 2")
+    sig2 = ref.sign(seed2, msg + b"2")
+    sig_lane("second key valid", ref.pubkey_from_seed(seed2), sig2[:32],
+             int.from_bytes(sig2[32:], "little"), msg + b"2")
+    return lanes
+
+
+def _persig_arrays(lanes):
+    """The lanes as pack_batch's (a_words (8, N), r_words (8, N), s_limbs
+    (16, N), h_limbs (16, N)) numpy arrays."""
+    import numpy as np
+
+    def words(encs):
+        return np.ascontiguousarray(np.stack(
+            [np.frombuffer(e, dtype=np.uint32) for e in encs], 1))
+
+    def limbs(vals):
+        return np.array([[(v >> (16 * j)) & 0xFFFF for j in range(16)]
+                         for v in vals], dtype=np.uint32).T.copy()
+
+    return (words([ln[1] for ln in lanes]), words([ln[2] for ln in lanes]),
+            limbs([ln[3] for ln in lanes]), limbs([ln[4] for ln in lanes]))
+
+
+def _persig_oracle(ref, lanes):
+    """Each lane's verdict by `ref`'s group law: A and R decompress
+    (ZIP-215) and [8](sB - hA - R) is the identity."""
+    out = []
+    for _, a_enc, r_enc, s, h, _ in lanes:
+        a_pt, r_pt = ref.point_decompress(a_enc), ref.point_decompress(r_enc)
+        out.append(a_pt is not None and r_pt is not None and ref.point_eq(
+            ref.point_mul(8 * s, ref.B),
+            ref.point_add(ref.point_mul(8, r_pt), ref.point_mul(8 * h, a_pt))))
+    return out
+
+
+def _persig_wide(state):
+    """K14's wide case: WIDE_LANES (16,384) real signatures (the batch's 8,192 and the
+    window's 4,848, tiled), a third corrupted: s + 1 mod L (lanes 12k +
+    5), R taken from the next lane's signature (12k + 6), the key of the
+    next lane (12k + 9), and one nibble of h raised by one mod 16 in the
+    pack (12k + 8, nibble i % 64).  Returns (pack_batch's four arrays,
+    the verdicts they must give: ed25519_ref.verify's, and a reject where
+    a nibble changed)."""
+    from cometbft_tpu_torch.crypto import ed25519 as ed
+
+    ref, n = state["ref"], WIDE_LANES
+    window = _window_items(state, [(h, state["commits"][h])
+                                   for h in state["heights"]])
+    base = [list(x) + list(y) for x, y in zip(state["batch"], window)]
+    pubs, msgs, sigs = ([x[i % len(x)] for i in range(n)] for x in base)
+    for i in range(n):
+        j = (i + 1) % n
+        if i % 12 == 5:
+            s = (int.from_bytes(sigs[i][32:], "little") + 1) % ref.L
+            sigs[i] = sigs[i][:32] + s.to_bytes(32, "little")
+        elif i % 12 == 6:
+            sigs[i] = sigs[j][:32] + sigs[i][32:]
+        elif i % 12 == 9:
+            pubs[i] = pubs[j]
+    want = _oracle(state, (pubs, msgs, sigs))
+    a, r, s, h, valid = ed.pack_batch(pubs, msgs, sigs, n)
+    h = h.copy()
+    for i in range(8, n, 12):
+        w = i % 64
+        limb, shift = h[w // 4, i], 4 * (w % 4)
+        nib = ((int(limb) >> shift) + 1) & 15
+        h[w // 4, i] = (int(limb) & ~(15 << shift)) | (nib << shift)
+        want[i] = False
+    check(all(valid) and sum(want) > n // 2 and not any(
+        want[i] for i in range(n) if i % 12 in (5, 6, 8, 9)),
+        "K14 wide pack oracle")
+    return (a, r, s, h), want
+
+
+def _persig_cases(state, torch):
+    """K14 against its plain version on the card, verdict for verdict and
+    accumulator for accumulator (its optional output, limb for limb), on
+    K1's output of each pack: the tampered commit's, the bad window's,
+    the hostile batch's, the edge lanes (two buckets of 16) and the wide
+    corrupted pack (and its first 4,096 lanes); every verdict also
+    against ed25519_ref (the edge lanes: its group law)."""
+    import numpy as np
+
+    from cometbft_tpu_torch import convert
+    from cometbft_tpu_torch.crypto import ed25519 as ed
+    from cometbft_tpu_torch.ops import cuda_decompress as cd
+    from cometbft_tpu_torch.ops import cuda_persig as cp
+    from cometbft_tpu_torch.ops import ed25519 as dev
+
+    ref = state["ref"]
+
+    def packed(items):
+        n = len(items[0])
+        a, r, s, h, valid = ed.pack_batch(*items, dev.bucket_size(n))
+        want = [bool(v) and w for v, w in
+                zip(valid, _oracle(state, items) + [False] * len(valid))]
+        return (a, r, s, h), want
+
+    commit, _ = _with_sig(state["commits"][5][1], N_VALS // 4, 11, 0x40)
+    lanes = _persig_edges(ref)
+    edges = _persig_arrays(lanes)
+    edge_want = _persig_oracle(ref, lanes)
+    check(all(ref.verify(*ln[5]) == w for ln, w in zip(lanes, edge_want)
+              if ln[5] is not None), "K14 edge oracle")
+    wide, wide_want = _persig_wide(state)
+    runs = [("commit, tampered",
+             *packed(_window_items(state, [(5, (state["commits"][5][0],
+                                                 commit))]))),
+            ("window, bad height",
+             *packed(_window_items(state, state["window_bad"][0]))),
+            ("batch, hostile", *packed(state["batch_items"]))]
+    for b in range(2):
+        sl = slice(b * PERSIG_EDGE_WIDTH, (b + 1) * PERSIG_EDGE_WIDTH)
+        runs.append((f"edges {b + 1}",
+                     tuple(np.ascontiguousarray(x[:, sl]) for x in edges),
+                     edge_want[sl]))
+    quarter = WIDE_LANES // 4
+    runs.append((f"wide, corrupted, first {quarter}",
+                 tuple(np.ascontiguousarray(x[:, :quarter]) for x in wide),
+                 wide_want[:quarter]))
+    runs.append(("wide, corrupted", wide, wide_want))
+    out = []
+    for label, arrays, want in runs:
+        aw, rw, st, ht = convert.batch_from_numpy(*arrays, DEVICE)
+        pts, oks = cd.decompress(torch.cat([aw, rw], dim=-1))
+        got, acc = cp.verify_ladder(pts, oks, st, ht, return_acc=True)
+        plain, pacc = cp.verify_ladder_plain(pts, oks, st, ht,
+                                             return_acc=True)
+        err = max(int((got != plain).sum()), _exact(acc, pacc))
+        verdicts = got.cpu().tolist()
+        differ = [i for i, w in enumerate(want) if verdicts[i] != w]
+        check(err == 0 and not differ, f"K14 {label}: differs from plain "
+              f"by {err}, from ed25519_ref at {differ[:8]}")
+        out.append({"shape": [int(st.shape[-1])], "max_abs_err": err,
+                    "args": (pts, oks, st, ht), "phase": label,
+                    "rejected": len(want) - sum(want)})
+    return out
 
 
 def _secp_window_items(state, commits):
@@ -2581,6 +2881,11 @@ def _work(name, case):
         # the G table read once; the Q tables live in shared memory only
         nb = case["args"][0].shape[-1]
         return nb * K13_SIG, 16 * 264 + nb * (2 * 88 + 2 * 256 + 2 * 88 + 2)
+    if name == "ed25519_verify_ladder":
+        # A and R points and ok flags, s and h limbs in, a verdict out, the
+        # B table once; the -A tables are the kernel's own scratch
+        n = case["args"][2].shape[-1]
+        return n * PERSIG_SIG, n * (2 * 320 + 2 + 2 * 64 + 1) + 16 * 320
     if name in HASH_KERNELS:
         blocks, nb = case["args"][0], case["args"][-1]
         used = int(nb.clamp(0, blocks.shape[1]).sum())
@@ -2591,6 +2896,28 @@ def _work(name, case):
     pa, pr = case["args"]
     n = pa.shape[-1] + pr.shape[-1]
     return (n - 1) * ADD + 3 * DBL, n * 320 + 4
+
+
+def _raw_persig(torch, args):
+    """K14 launched through its C function into a preallocated verdict
+    and scratch: the kernel's time without the wrapper's checks."""
+    from cometbft_tpu_torch.ops import cuda_persig as cp
+    from cometbft_tpu_torch.ops import device as devmod
+
+    lib = cp._lib()
+    n = int(args[2].shape[-1])
+    dev = args[0].device
+    out = torch.empty((n,), dtype=torch.bool, device=dev)
+    slots = -(-n // cp.SIGS_PER_BLOCK) * cp.SIGS_PER_BLOCK
+    scratch = torch.empty((slots, 16, 4, 20), dtype=torch.int32, device=dev)
+    btab = devmod.constant(cp._ed()._BTAB_NP, dev, torch.int32)
+    call = (*(devmod.ptr(t) for t in (*args, btab, scratch)), n,
+            devmod.ptr(out), None, devmod.stream(args[0]))
+
+    def launch():
+        devmod.check_launch(lib.ed25519_verify_ladder(*call),
+                            "ed25519_verify_ladder")
+    return launch
 
 
 def _raw_sha(torch, name, args):
@@ -2662,27 +2989,31 @@ def _bound(state, ops, nbytes, bytes_per_s=HBM_BYTES_PER_S):
 
 
 # the entry functions of each secp256k1 kernel (K11 has two, K12 one per
-# split T and its out-of-line products), as ptxas names them
-SECP_ENTRIES = {"secp_q_tables": ("q_bases_kernel", "q_rows_kernel"),
-                "secp_msm_verify": ("msm_verify_kernel", "7fesecpn3mul",
-                                    "7fesecpn3sqr"),
-                "secp_ladder": ("ladder_kernel",)}
+# split T and its out-of-line products) and of K14, as ptxas names them
+KERNEL_ENTRIES = {"secp_q_tables": ("q_bases_kernel", "q_rows_kernel"),
+                  "secp_msm_verify": ("msm_verify_kernel", "7fesecpn3mul",
+                                      "7fesecpn3sqr"),
+                  "secp_ladder": ("13ladder_kernel",),
+                  "ed25519_verify_ladder": ("20verify_ladder_kernel",)}
+# the kernels whose plain versions take seconds a call, timed once
+SLOW_PLAIN = SECP_KERNELS + ("ed25519_verify_ladder",)
 
 
 def _ptxas_of(state, name):
-    """ptxas -v's registers, stack and spills of a secp256k1 kernel's
-    entry functions."""
+    """ptxas -v's registers, stack and spills of a secp256k1 kernel's or
+    K14's entry functions."""
     return {k: v for k, v in state["ptxas"].items()
-            if any(e in k for e in SECP_ENTRIES[name])}
+            if any(e in k for e in KERNEL_ENTRIES[name])}
 
 
 def phase_timing(state, torch):
     from cometbft_tpu_torch.ops import cuda_decompress as cd
     from cometbft_tpu_torch.ops import cuda_msm as cm
+    from cometbft_tpu_torch.ops import cuda_persig as cp
     from cometbft_tpu_torch.ops import secp256k1 as secp_ops
     from cometbft_tpu_torch.ops import sha2
 
-    plain = {"sha512_blocks": sha2.sha512_blocks_plain,
+    plain = {"ed25519_verify_ladder": cp.verify_ladder_plain,"sha512_blocks": sha2.sha512_blocks_plain,
              "sha256_blocks": sha2.sha256_blocks_plain,
              "ed25519_decompress": cd.decompress_plain,
              "ed25519_table17_neg": cm.table17_neg_plain,
@@ -2703,9 +3034,10 @@ def phase_timing(state, torch):
         shapes = []
         for case in state["cases"][name]:
             ms = _time(torch, fn, case["args"], 7, inner=10)
-            # the secp plain versions take seconds a call (10^5 launches)
+            # the secp and K14 plain versions take seconds a call (10^5
+            # launches)
             plain_ms = _time(torch, plain[name], case["args"],
-                             1 if name in SECP_KERNELS else 3)
+                             1 if name in SLOW_PLAIN else 3)
             ops, nbytes = _work(name, case)
             bound_ms, bound_by = _bound(state, ops, nbytes)
             extra = {k: case[k] for k in ("group", "blk", "row", "zero_rows")
@@ -2714,6 +3046,11 @@ def phase_timing(state, torch):
                 extra["raw_ms"] = _time(torch, _raw_secp(torch, name,
                                                          case["args"]),
                                         (), 7, inner=10)
+            if name == "ed25519_verify_ladder":
+                extra["raw_ms"] = _time(torch, _raw_persig(torch,
+                                                           case["args"]),
+                                        (), 7, inner=10)
+                extra["rejected"] = case["rejected"]
             if name == "secp_q_tables":
                 for step in ("walk", "rows"):
                     extra[f"raw_{step}_ms"] = _time(
@@ -2761,9 +3098,10 @@ def phase_timing(state, torch):
                          "int32_madds_per_lane": {
                              "secp_q_tables": K11_KEY,
                              "secp_msm_verify": K12_SIG,
-                             "secp_ladder": K13_SIG}[name],
+                             "secp_ladder": K13_SIG,
+                             "ed25519_verify_ladder": PERSIG_SIG}[name],
                          "ptxas": _ptxas_of(state, name)}
-                        if name in SECP_KERNELS else {}),
+                        if name in SLOW_PLAIN else {}),
                      **({"host_hashlib_ms": top["host_hashlib_ms"],
                          "min_ops_per_block": (
                              SHA512_BLOCK_OPS if name == "sha512_blocks"

@@ -51,6 +51,10 @@ SIGNATURES = {
         "ed25519_group_warps": [],
         "ed25519_group_quads": [],
     },
+    "ed25519_persig": {
+        "ed25519_verify_ladder": [_P] * 6 + [_I64, _P, _P, _P],
+        "ed25519_persig_threads": [],
+    },
     "sha2_kernels": {
         "sha512_blocks": [_P, _P, _P, _I64, _I32, _P, _P, _P],
         "sha256_blocks": [_P, _P, _I64, _I32, _P, _P],

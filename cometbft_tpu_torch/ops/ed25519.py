@@ -7,6 +7,9 @@ window tables (17, 4, 20, W), the batch axis minor.  The hot steps of
 the RLC program go through the kernel wrappers of ops/cuda_decompress.py
 (K1) and ops/cuda_msm.py (K2-K7): on a CUDA tensor each launches its
 hand-written kernel, on a CPU tensor it runs its plain version.
+The per-signature program of reject localization (verify_kernel) runs
+on K1 and K14 (ops/cuda_persig.py), one launch each, and its plain
+version's building blocks (_BTAB_NP, _nibbles, _select) stay here.
 Everything else here is plain torch on whatever device its inputs live
 on.  The device-hash programs (rlc_verify_hash_kernel, verify_hash_kernel)
 hash R||A||M on K9 (ops/sha2.py) and reduce, aggregate and recode in
@@ -37,7 +40,7 @@ import os
 import numpy as np
 import torch
 
-from . import cuda_decompress, cuda_msm
+from . import cuda_decompress, cuda_msm, cuda_persig
 from . import device as devmod
 from . import fe
 from . import limbs as lb
@@ -357,33 +360,11 @@ def verify_kernel(a_words, r_words, s_limbs, h_limbs):
     a_words, r_words: (8, N) int32 bit patterns of pubkey / R encodings;
     s_limbs, h_limbs: (16, N) int32 radix-2**16 limbs of s and
     h = SHA512(R||A||M) mod L.  Returns (N,) bool verdicts.
-    Decompression runs on K1; the 4-bit Straus chain is plain torch
-    (it is plain XLA in the JAX package, and it runs only on a reject)."""
-    n = a_words.shape[-1]
+    Decompression of A || R runs on K1, the rest of the program (the -A
+    table, the 4-bit Straus chain over the B and -A tables, the
+    cofactored identity test) on K14 (ops/cuda_persig.py)."""
     pts, oks = decompress(torch.cat([a_words, r_words], dim=-1))
-    a_pt, r_pt = pts[..., :n], pts[..., n:]
-    ok_a, ok_r = oks[:n], oks[n:]
-
-    rows = [identity_point((n,), a_pt.device), point_neg(a_pt)]
-    neg_a_cached = to_cached(rows[1])
-    for _ in range(14):
-        rows.append(add_cached(rows[-1], neg_a_cached))
-    neg_a_tab = torch.stack([to_cached(r) for r in rows], dim=0)
-    btab = devmod.constant(_BTAB_NP, a_pt.device, torch.int32)[..., None]
-    s_nib = _nibbles(s_limbs)
-    h_nib = _nibbles(h_limbs)
-
-    acc = identity_point((n,), a_pt.device)
-    for i in range(s_nib.shape[0] - 1, -1, -1):
-        for _ in range(3):
-            acc = point_double(acc, with_t=False)
-        acc = point_double(acc, with_t=True)
-        acc = add_cached(acc, _select(btab, s_nib[i]))
-        acc = add_cached(acc, _select(neg_a_tab, h_nib[i]))
-    acc = add_cached(acc, to_cached(point_neg(r_pt)))
-    for _ in range(3):               # cofactor 8
-        acc = point_double(acc, with_t=False)
-    return ok_a & ok_r & point_is_identity(acc)
+    return cuda_persig.verify_ladder(pts, oks, s_limbs, h_limbs)
 
 
 # ---------------------------------------------------------------------------

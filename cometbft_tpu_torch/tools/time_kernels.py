@@ -2,7 +2,8 @@
 """Time the port's kernels K1 (decompress), K2 (table17_neg), K3
 (msm_window_major), K4 (fold_verify), K5 (msm_window_major_grouped), K6
 (msm_window_loop), K7 (select_tree), K11 (secp_q_tables), K12
-(secp_msm_verify) and K13 (secp_ladder) of one checkout on the card, at
+(secp_msm_verify), K13 (secp_ladder) and K14 (ed25519_verify_ladder) of
+one checkout on the card, at
 the main path's widths, and optionally count the instruction mix of K1's
 and K2's longest loops.
 
@@ -45,7 +46,12 @@ C function into a preallocated verdict at B = 4,096, at chip_smoke.py's
 package) and at 16,384, each first held against its plain version and
 the lanes' own verdicts: 64 lanes from the host's group law (u1, u2
 random, Q one of four keys, r = x(u1 G + u2 Q), a third with r + 1),
-tiled to the width, 10 calls a run.  --sass disassembles
+tiled to the width, 10 calls a run.  K14 the same way at 16, 4,096 and
+16,384 signatures: 64 real signatures signed on the host from the seed
+(a third with s + 1), packed, tiled to the width, decompressed by K1 on
+the card, each shape held first against verify_ladder_plain and the
+lanes' verdicts; a checkout without K14 is recorded as "absent".
+--sass disassembles
 the built library with cuobjdump and prints, for each of the two
 kernels, the opcode counts of its longest loop (a backward branch and
 its target).  Prints one JSON line.
@@ -66,6 +72,7 @@ WIDTHS = (128, 5120, 8192, 10240)
 SECP_KEYS = (4, 128, 192)                      # K11: keys
 SECP_SHAPES = ((256, 128), (4096, 128), (16384, 192))   # K12: (B, K)
 LADDER_SHAPES = (4096, 16, 16384)              # K13: B (16: the edge lanes)
+PERSIG_SHAPES = (16, 4096, 16384)              # K14: signatures
 K4_SHAPES = ((4, 4), (4, 10), (10, 8))     # commit, window, batch
 LOOP_BLKS = (512, 2048)                    # BLK for K6 and K7
 
@@ -296,6 +303,69 @@ def _ladder(torch, rec):
     return ok
 
 
+def _persig(torch, rec):
+    """K14 of the checkout: held against its plain version and the lanes'
+    verdicts at each shape, then timed by raw launches into a
+    preallocated verdict and scratch.  Returns whether every shape held
+    (True where the checkout has no K14: "absent")."""
+    from cometbft_tpu_torch.ops import _build
+
+    if "ed25519_persig" not in _build.SIGNATURES:
+        rec["k14_ms"] = "absent"
+        return True
+    import random
+
+    import numpy as np
+
+    from cometbft_tpu_torch import convert
+    from cometbft_tpu_torch.crypto import ed25519 as ted
+    from cometbft_tpu_torch.crypto import ed25519_ref as ref
+    from cometbft_tpu_torch.ops import cuda_decompress as cd
+    from cometbft_tpu_torch.ops import cuda_persig as cp
+    from cometbft_tpu_torch.ops import device as devmod
+
+    rng = random.Random(20261019)
+    pubs, msgs, sigs = [], [], []
+    for j in range(64):
+        seed, msg = rng.randbytes(32), rng.randbytes(60)
+        sig = ref.sign(seed, msg)
+        if j % 3 == 1:
+            s = (int.from_bytes(sig[32:], "little") + 1) % ref.L
+            sig = sig[:32] + s.to_bytes(32, "little")
+        pubs.append(ref.pubkey_from_seed(seed))
+        msgs.append(msg)
+        sigs.append(sig)
+    packed = ted.pack_batch(pubs, msgs, sigs, 64)[:4]
+    want = [j % 3 != 1 for j in range(64)]
+    lib = cp._lib()
+    dev = torch.device("cuda")
+    btab = devmod.constant(cp._ed()._BTAB_NP, dev, torch.int32)
+    stream = torch.cuda.current_stream().cuda_stream
+    ok = True
+    rec.update(k14_verdicts_equal={}, k14_ms={})
+    for nb in PERSIG_SHAPES:
+        reps = -(-nb // 64)
+        aw, rw, st, ht = convert.batch_from_numpy(
+            *(np.ascontiguousarray(np.tile(x, reps)[:, :nb]) for x in packed),
+            dev)
+        pts, oks = cd.decompress(torch.cat([aw, rw], dim=-1))
+        out = torch.empty((nb,), dtype=torch.bool, device=dev)
+        slots = -(-nb // cp.SIGS_PER_BLOCK) * cp.SIGS_PER_BLOCK
+        scratch = torch.empty((slots, 16, 4, 20), dtype=torch.int32,
+                              device=dev)
+        call = (*map(devmod.ptr, (pts, oks, st, ht, btab, scratch)), nb,
+                devmod.ptr(out), None, stream)
+        held = lib.ed25519_verify_ladder(*call) == 0
+        plain = cp.verify_ladder_plain(pts, oks, st, ht)
+        held = (held and bool((out == plain).all())
+                and out.cpu().tolist() == (want * reps)[:nb])
+        rec["k14_verdicts_equal"][nb] = held
+        rec["k14_ms"][nb] = _time(torch, lib.ed25519_verify_ladder, call,
+                                  inner=10)
+        ok = ok and held
+    return ok
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
@@ -429,6 +499,7 @@ def main() -> int:
                  out_l, nout, devmod.ptr(lout), stream))
         cm.BLK = saved_blk
     secp_ok = _secp(torch, rec) and _ladder(torch, rec)
+    persig_ok = _persig(torch, rec)
     if args.sass:
         so = _build._target("ed25519_kernels")
         tool = Path(_build.nvcc()).parent / "cuobjdump"
@@ -439,7 +510,7 @@ def main() -> int:
     print(json.dumps(rec), flush=True)
     loop_ok = all(e in (0, "refused") for e in loop_err.values())
     return 0 if (k1_err == 0 and k2_err == 0 and k4_ok and k5_err == 0
-                 and loop_ok and secp_ok) else 1
+                 and loop_ok and secp_ok and persig_ok) else 1
 
 
 if __name__ == "__main__":
