@@ -4,7 +4,7 @@ card (Ed25519 in each of its MSM engine configurations, the device-hash
 route, secp256k1 and mixed-key commits), and hold each of its CUDA
 kernels against its plain torch version.  Every per-signature
 localization of an Ed25519 reject (ops/ed25519.verify_kernel) must launch
-exactly one K1 and one K14.
+exactly one K1 and one K14, on one device over the live signatures.
 
     python3 chip_smoke.py
 
@@ -12,22 +12,28 @@ Phases (one JSON line each; any failure exits non-zero and prints no
 result):
   1. build   compile ops/csrc/*.cu with nvcc (one nvcc per source, in
              parallel), print the card's name and power limit, and
-             report each kernel's registers, stack and spills (ptxas
-             -v); K11, K12 and K13 must show neither a stack nor
-             spills;
+             report each kernel's registers, shared memory, stack and
+             spills (ptxas -v) and each library's build seconds and
+             load ms; K11, K12, K13 and K14 must show neither a stack
+             nor spills;
   2. commit  one 150-validator commit through verify_commit_light on the
              card: accept, one tampered signature (ErrInvalidSignature
-             naming its index; one localization), a commit below +2/3;
+             naming its index; one localization over its 101
+             signatures), a commit below +2/3.  That localization is the
+             process's first: its ms, its torch.cat and K1's and K14's
+             calls, and the same localization again, apart
+             (`first_localization`);
   3. window  a blocksync window — 48 heights x 150 validators collected
              with DeferredSigBatch — three times with one validator set
              (whole program, then the cached-A program once the
              ATableCache holds the set's tables), then a window with one
-             bad signature at a known height (one localization);
+             bad signature at a known height (one localization, over its
+             4,848 signatures);
   4. batch   8,192 signatures under distinct keys through
              create_batch_verifier("ed25519", device="cuda"): clean, then
              with an s >= L signature, non-canonical-y keys and a tampered
-             signature (one localization), every verdict held against
-             the pure-Python ed25519_ref.verify;
+             signature (one localization over the 8,192), every verdict
+             held against the pure-Python ed25519_ref.verify;
   5. mesh    the multi-device path on device lists [cuda:(i % cards)
              for i in range(n)] (n logical shards on one card): K8
              (ops/msm_shard.rlc_verify_sharded) on the window's and the
@@ -51,7 +57,8 @@ result):
              ed25519_ref.verify's, the bad signature localized by
              verify_hash_kernel, each RLC call launching one K9 beside the
              K1-K4 of the host-hash program at the same widths and each
-             localization one K9, one K1 and one K14; a message over
+             localization one K9, one K1 and one K14 over its live
+             signatures; a message over
              DEVICE_HASH_MAX_BLOCKS raising ValueError; a 10,000-validator
              ValidatorSet.hash() equal to the host Merkle root with one
              K10 launch, and sum_sha256_many of 511 messages with none;
@@ -74,7 +81,8 @@ result):
              are exact (one K12 a MSM call, K11 on a key-table miss only,
              one K13 a ladder call; the mixed commit's ed25519 part the
              whole RLC program, 2 K1, 2 K2, 2 K3 and 1 K4, and one K1
-             and one K14 for its localization); every verdict is _verify_py's
+             and one K14 over its 9,000 for its localization); every
+             verdict is _verify_py's
              (ed25519: ed25519_ref.verify's).  Outside the count: the
              host waits inside verify_msm_async (none allowed), the
              split's launch-before-read order, the host packing time;
@@ -103,7 +111,7 @@ result):
              on partial sets made on the card from the seed: sums of
              identity at 2 to 4,608 partials, each also with one limb
              changed, and two with an 8-torsion component; K9 at the
-             hash phase's four widths (128, 5,120, 8,192 and the 16,384
+             hash phase's four widths (128, 5,120, 8,192 and the 4,848
              of the window's localization) and K9 / K10 at their padding
              boundaries, with rows whose block count is 0, word for word
              and against hashlib; K10 at the 10,000 validator leaves;
@@ -120,22 +128,24 @@ result):
              zeros) and at a 16,384-lane pack of the same signatures
              with a third of its lanes corrupted (s, r, a nibble, the
              key) and r + n lanes (_wide_ladder), verdict for verdict
-             and against the host; K14 at the tampered commit's,
-             the bad window's (16,384 lanes) and the hostile batch's
-             packs, at 32 edge lanes in two buckets of 16
+             and against the host; K14 at the tampered commit's, the
+             bad window's and the hostile batch's packs (their buckets,
+             256, 16,384 and 16,384 lanes, and their live widths, 101,
+             4,848 and 8,192), at 32 edge lanes in two buckets of 16
              (_persig_edges: decompression failures, the identity key,
              the 8 small-order points as A and as R, torsion in R, s =
              L - 1, nibbles all 0 and all 15) and at 16,384 real
              signatures with a third corrupted (s, R, a nibble of h, the
              key; and its first 4,096 lanes), verdict for verdict and
-             accumulator for accumulator (limb for limb), and against
-             ed25519_ref;
+             accumulator for accumulator (frozen, coordinate for
+             coordinate), and against ed25519_ref;
  10. timing  each kernel's median time over runs of 10 launches back to
              back and each plain version's median time per call (CUDA
              events), with the bound the card could reach for the same
              work; for K9-K13 also their time launched through the C
              function into preallocated outputs (raw_ms, no wrapper;
-             K14 too, at 16 / 256 / 4,096 / 8,192 / 16,384), K11's
+             K14 too, at each of its cases, with its bound also at the
+             20 x 13-bit price of its design before), K11's
              walk and rows apart (raw_walk_ms, raw_rows_ms), for K9 and
              K10 hashlib's time on the host for the same messages.
 The launch counters are reset before phase 2 and read after phase 4
@@ -219,6 +229,10 @@ MIXED_ED_LAUNCHES = {"ed25519_decompress": 3, "ed25519_table17_neg": 2,
                      "ed25519_msm_window_major": 2, "ed25519_fold_verify": 1,
                      "ed25519_verify_ladder": 1}
 SECP_ABSENT = N_VALS - (2 * N_VALS // 3 + 1)   # 49 absent of each window commit
+# signatures verify_commit_light collects from a 150-validator commit
+# (it stops past +2/3): the live width of the commit's localization, and
+# WINDOW times it the window's
+COMMIT_SIGS = 2 * N_VALS // 3 + 1
 WIDE_LANES, WIDE_KEYS = 16384, 192   # K12's corrupted wide pack
 N_VALSET = 10_000              # ValidatorSet.hash(): upstream's largest sets
 MESH_SHARDS = (1, 2, 4)
@@ -289,12 +303,18 @@ K11_KEY = 52 * 5 * JDBL + 52 * (JDBL + 15 * JADD)
 # correction, 52 adds from the key's table and the 2^260 Q and -S
 # corrections, the epilogue's Z^2, r Z^2 and (r + n) Z^2
 K12_SIG = 33 * JMADD + 54 * JADD + S256 + 2 * M256
-# K14 per signature (Ed25519 products, MUL and SQR): the -A table (its
-# cached form, 14 cached adds, 14 row conversions; row 0 is constant), 64
-# windows of 3 doublings without T, one with T and 2 cached adds, then
-# to_cached(-R), a cached add and 3 cofactor doublings
-PERSIG_SIG = ((1 + 14 * 8 + 14) * MUL + 64 * (3 * DBL + DBL_T + 16 * MUL)
-              + MUL + 8 * MUL + 3 * DBL)
+# K14 per signature, in Ed25519 field products and squarings: the -A
+# table (its cached form, 14 cached adds, 14 row conversions; row 0 is
+# constant), 64 windows of 3 doublings without T, one with T and 2 cached
+# adds, then to_cached(-R), a cached add and 3 cofactor doublings:
+# 2,001 and 1,036.  Priced on the native field K14 runs on (an 8 x 8
+# schoolbook and the fold, M256 and S256: 195,730 a signature) and, as
+# the yardstick of its 20 x 13-bit design before, at MUL and SQR
+# (1,017,960)
+PERSIG_MULS = 1 + 14 * 8 + 14 + 64 * (3 * 3 + 4 + 16) + 1 + 8 + 3 * 3
+PERSIG_SQRS = 64 * (3 * 4 + 4) + 3 * 4
+PERSIG_SIG = PERSIG_MULS * M256 + PERSIG_SQRS * S256
+PERSIG_SIG_13 = PERSIG_MULS * MUL + PERSIG_SQRS * SQR
 # per signature: the 16-row Q table (a doubling, 13 adds), 64 windows of
 # 4 doublings and 2 adds, the epilogue's Z^2, r Z^2 and (r + n) Z^2 (no
 # inversion: X == r Z^2, as K12 decides it)
@@ -411,8 +431,12 @@ def phase_build(state, torch):
     t0 = time.perf_counter()
     sources = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
     _build.build(sources)
+    build_s = time.perf_counter() - t0
+    load_ms = {}
     for name in sources:
+        t1 = time.perf_counter()
         _build.load(name)
+        load_ms[name] = (time.perf_counter() - t1) * 1e3
     ptxas = {}
     for name in sources:
         ptxas.update(_ptxas(_build.build_info[name]["log"]))
@@ -420,29 +444,29 @@ def phase_build(state, torch):
     state["sm_clock_hz"] = float(clock) * 1e6
     state["card"] = card
     state["ptxas"] = ptxas
-    # K11-K13 keep their operands in registers: no spill, no stack (K11
+    # K11-K14 keep their operands in registers: no spill, no stack (K11
     # has two entry functions, K12 two and its out-of-line products)
     for kernel, entries in (("secp_q_tables", 2), ("secp_msm_verify", 2),
-                            ("secp_ladder", 1)):
+                            ("secp_ladder", 1), ("ed25519_verify_ladder", 1)):
         found = _ptxas_of(state, kernel)
         check(len(found) >= entries and all(
             v.get(k, 0) == 0 for v in found.values()
             for k in ("stack_frame", "spill_stores", "spill_loads")),
             f"{kernel}: ptxas reports a stack or spills: {found}")
-    k14 = _ptxas_of(state, "ed25519_verify_ladder")
-    check(len(k14) == 1 and all(v.get("spill_stores", 0) == 0 and
-                                v.get("spill_loads", 0) == 0
-                                for v in k14.values()),
-          f"ed25519_verify_ladder: ptxas reports spills: {k14}")
-    return {"card": card, "build_seconds": time.perf_counter() - t0,
-            "sources": sources, "max_sm_clock_mhz": float(clock),
-            "k14_ptxas": k14, "ptxas": ptxas}
+    return {"card": card, "build_seconds": build_s,
+            "build_seconds_by_source": {
+                n: _build.build_info[n]["seconds"] for n in sources},
+            "load_ms": load_ms, "sources": sources,
+            "max_sm_clock_mhz": float(clock),
+            "k14_ptxas": _ptxas_of(state, "ed25519_verify_ladder"),
+            "ptxas": ptxas}
 
 
 def _ptxas(log: str) -> dict:
-    """{kernel or device function: {"registers", "stack_frame",
-    "spill_stores", "spill_loads"}} from nvcc -Xptxas -v output (a kernel's name led by
-    its identifier, a device function's mangled name as it is)."""
+    """{kernel or device function: {"registers", "smem_bytes",
+    "stack_frame", "spill_stores", "spill_loads"}} from nvcc -Xptxas -v
+    output (a kernel's name led by its identifier, a device function's
+    mangled name as it is)."""
     import re
 
     def name(mangled):
@@ -474,6 +498,9 @@ def _ptxas(log: str) -> dict:
         m = re.search(r"Used (\d+) registers", ln)
         if m and cur is not None:
             out[cur]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", ln)
+            if m:
+                out[cur]["smem_bytes"] = int(m.group(1))
     return {name(k): v for k, v in out.items()}
 
 
@@ -576,23 +603,43 @@ def _set_engine(flags):
 
 class _Timed:
     """Wraps a module function to record its calls' wall seconds (each
-    call ends in a host sync: a verdict read back) and the kernels each
-    call launched."""
+    call ends in a host sync: a verdict read back), each call's seconds
+    and lane width (its first argument's last axis, where it is a
+    tensor) and the kernels each call launched."""
 
-    def __init__(self, mod, attr, torch):
+    def __init__(self, mod, attr, torch, split=()):
         self.mod, self.attr, self.fn = mod, attr, getattr(mod, attr)
         self.torch, self.calls, self.seconds = torch, 0, 0.0
-        self.launched = []
+        self.launched, self.widths, self.each = [], [], []
+        # (module, attribute, stand-in) of what the first call times one
+        # by one (_Stopwatch, _CatStopwatch), with its arguments kept
+        self.split, self.parts, self.first_args = split, {}, None
 
     def __enter__(self):
         def wrapped(*a, **k):
             before = _counts()
+            watches = []
+            if self.split and self.calls == 0:
+                self.first_args = a
+                watches = [(m, n, make(getattr(m, n), self.torch))
+                           for m, n, make in self.split]
+                for m, n, w in watches:
+                    setattr(m, n, w)
             t0 = time.perf_counter()
-            out = self.fn(*a, **k)
-            if DEVICE == "cuda":
-                self.torch.cuda.synchronize()
-            self.seconds += time.perf_counter() - t0
+            try:
+                out = self.fn(*a, **k)
+                if DEVICE == "cuda":
+                    self.torch.cuda.synchronize()
+            finally:
+                for m, n, w in watches:
+                    setattr(m, n, w.fn)
+                    self.parts[n] = w.ms
+            dt = time.perf_counter() - t0
+            self.seconds += dt
+            self.each.append(dt)
             self.calls += 1
+            shape = getattr(a[0], "shape", None) if a else None
+            self.widths.append(None if shape is None else int(shape[-1]))
             self.launched.append(_launched(before, _counts()))
             return out
         setattr(self.mod, self.attr, wrapped)
@@ -602,20 +649,94 @@ class _Timed:
         setattr(self.mod, self.attr, self.fn)
 
 
-def _persig(torch):
+class _Stopwatch:
+    """Stands in for a kernel wrapper: times each call on the host clock
+    between two synchronizations (a first call's one-time costs included)
+    and passes the wrapper's launch count through."""
+
+    def __init__(self, fn, torch, ms=None):
+        self.fn, self.torch, self.ms = fn, torch, [] if ms is None else ms
+
+    @property
+    def launches(self):
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, value):
+        self.fn.launches = value
+
+    def __call__(self, *a, **k):
+        if DEVICE == "cuda":
+            self.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.fn(*a, **k)
+        if DEVICE == "cuda":
+            self.torch.cuda.synchronize()
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+
+class _CatStopwatch(_Stopwatch):
+    """Stands in for a module's `torch`: times torch.cat as _Stopwatch
+    does, everything else passes through."""
+
+    def __getattr__(self, name):
+        return getattr(self.fn, name)
+
+    def cat(self, *a, **k):
+        return _Stopwatch.__call__(_Stopwatch(self.fn.cat, self.torch,
+                                              self.ms), *a, **k)
+
+
+def _persig(torch, split=False):
     """_Timed on ops/ed25519.verify_kernel, the per-signature
-    localization."""
+    localization; with split, its first call also times its three steps
+    one by one: the torch.cat of A and R, K1's and K14's wrappers."""
+    from cometbft_tpu_torch.ops import cuda_decompress, cuda_persig
     from cometbft_tpu_torch.ops import ed25519 as dev
-    return _Timed(dev, "verify_kernel", torch)
+    return _Timed(dev, "verify_kernel", torch,
+                  ((dev, "torch", _CatStopwatch),
+                   (cuda_decompress, "decompress", _Stopwatch),
+                   (cuda_persig, "verify_ladder", _Stopwatch))
+                  if split else ())
 
 
-def _check_persig(persig, label, calls=1, want=None):
+def _first_localization(persig, torch):
+    """The process's first localization (the commit reject's), apart
+    from the others: its wall ms and its three steps' (the torch.cat of
+    A and R, K1's and K14's wrapper calls), and the same localization
+    run again on the same inputs (outside the count).  The difference,
+    `once_ms`, is what a process pays once: the first launch of each
+    CUDA kernel loads its module (lazily), and the first allocations of
+    its sizes; the libraries' build and load are the build phase's."""
+    saved = _counts()
+    again = _persig(torch, split=True)
+    with again:
+        again.mod.verify_kernel(*persig.first_args)
+    for name, fn in _kernels().items():
+        fn.launches = saved[name]
+    def steps(t):
+        return {"ms": t.each[0] * 1e3, "width": t.widths[0],
+                "cat_ms": t.parts["torch"], "k1_ms": t.parts["decompress"],
+                "k14_ms": t.parts["verify_ladder"]}
+
+    rec = {"first": steps(persig), "again": steps(again),
+           "cuda_module_loading": os.environ.get("CUDA_MODULE_LOADING")}
+    rec["once_ms"] = {k: (rec["first"][k] - rec["again"][k]) if k == "ms"
+                      else sum(rec["first"][k]) - sum(rec["again"][k])
+                      for k in ("ms", "cat_ms", "k1_ms", "k14_ms")}
+    return rec
+
+
+def _check_persig(persig, label, width, calls=1, want=None):
     """`calls` localizations, each launching exactly `want` (one K1 and
-    one K14)."""
+    one K14) over `width` lanes: the live signatures, on one device."""
     want = PERSIG_LAUNCHES if want is None else want
     check(persig.calls == calls and all(x == want for x in persig.launched),
           f"{label}: {persig.calls} localizations launching "
           f"{persig.launched}, not {calls} launching {want} each")
+    check(persig.widths == [width] * calls, f"{label}: localizations over "
+          f"{persig.widths} lanes, not {width}")
 
 
 def _with_sig(commit, idx, byte, bit):
@@ -643,8 +764,9 @@ def _commit_accept_reject(state, val):
     accept_s = time.perf_counter() - t0
     bad_idx = N_VALS // 4
     tampered, s = _with_sig(commit, bad_idx, 11, 0x40)
+    first = "first_localization" not in state
     t0 = time.perf_counter()
-    with _persig(torch) as persig:
+    with _persig(torch, split=first) as persig:
         try:
             val.verify_commit_light(CHAIN_ID, vals, bid, 5, tampered,
                                     device=DEVICE)
@@ -652,8 +774,11 @@ def _commit_accept_reject(state, val):
         except val.ErrInvalidSignature as e:
             check(str(e).startswith(f"wrong signature (#{bad_idx}): "
                                     f"{s.hex()}"), f"wrong message {e}")
-    _check_persig(persig, "commit reject")
-    return accept_s, time.perf_counter() - t0
+    reject_s = time.perf_counter() - t0
+    _check_persig(persig, "commit reject", COMMIT_SIGS)
+    if first:
+        state["first_localization"] = _first_localization(persig, torch)
+    return accept_s, reject_s
 
 
 def phase_commit(state, torch):
@@ -681,7 +806,8 @@ def phase_commit(state, torch):
               f"wrong message {e}")
     after = _counts()
     return {"accept_seconds": accept_s,
-            "launches": {k: after[k] - before[k] for k in after}}
+            "launches": {k: after[k] - before[k] for k in after},
+            "first_localization": state["first_localization"]}
 
 
 def _run_window(state, val, commits):
@@ -717,7 +843,7 @@ def _window_reject(state, val, commits):
             check(str(e) == f"wrong signature in commit at height {bad_h}: "
                   f"{s.hex()}", f"wrong message {e}")
     seconds = time.perf_counter() - t0
-    _check_persig(persig, "window reject")
+    _check_persig(persig, "window reject", WINDOW * COMMIT_SIGS)
     return seconds, bad, bad_h, persig.seconds
 
 
@@ -820,7 +946,7 @@ def phase_batch(state, torch):
         t0 = time.perf_counter()
         ok, verdicts = bv.verify()
         hostile_s = time.perf_counter() - t0
-    _check_persig(persig, "hostile batch")
+    _check_persig(persig, "hostile batch", N_BATCH)
     t0 = time.perf_counter()
     want = _pool_map(state["pool"], _verify, list(zip(pubs, msgs, sigs)))
     oracle_s = time.perf_counter() - t0
@@ -1322,6 +1448,8 @@ def phase_hash(state, torch):
         if bad_i is not None:
             check(rows[label]["rejected"] == [bad_i], f"hash {label}: "
                   f"rejected {rows[label]['rejected'][:8]}, not [{bad_i}]")
+        check(persig.widths == [n] * persig.calls, f"hash {label}: "
+              f"localizations over {persig.widths} lanes, not {n}")
     oversized = cases["commit"][0]
     long = [b"\x00" * (128 * ed.DEVICE_HASH_MAX_BLOCKS)] + oversized[1][1:]
     before = _counts()
@@ -1405,7 +1533,7 @@ def phase_hash(state, torch):
               f"{rec['launches']}, not {need}")
         if label == "window_bad":
             a, r, s, bh, bl, nb, valid = ed.pack_batch_device_hash(
-                pks, msgs, [b""] * n, dev.bucket_size(n), parsed=parsed)
+                pks, msgs, [b""] * n, n, parsed=parsed)
             k9_inputs.append(("window localization", (bh, bl, nb), ram))
     for name, fn in _kernels().items():  # comparison launches do not count
         fn.launches = state["hash_launches"][name]
@@ -1741,8 +1869,10 @@ def phase_secp(state, torch):
         for it in items:
             mv.add(*it)
         return mv.verify()
-    ok, verdicts = step("mixed", mixed,
-                        lambda rec: {**msm(rec), **MIXED_ED_LAUNCHES})
+    with _persig(torch) as persig:
+        ok, verdicts = step("mixed", mixed,
+                            lambda rec: {**msm(rec), **MIXED_ED_LAUNCHES})
+    _check_persig(persig, "mixed commit", MIXED_ED)
     want_ed = _oracle(state, tuple(zip(*[(p.bytes(), m, s)
                                          for p, m, s in items[:MIXED_ED]])))
     want_sk = _secp_oracle(state, tuple(zip(*[(p.bytes(), m, s)
@@ -2354,13 +2484,24 @@ def _persig_wide(state):
     return (a, r, s, h), want
 
 
+def _frozen25519(t):
+    """ops/fe.freeze along the limb axis (second to last)."""
+    from cometbft_tpu_torch.ops import fe
+
+    return fe.freeze(t.movedim(-2, 0)).movedim(0, -2)
+
+
 def _persig_cases(state, torch):
     """K14 against its plain version on the card, verdict for verdict and
-    accumulator for accumulator (its optional output, limb for limb), on
-    K1's output of each pack: the tampered commit's, the bad window's,
-    the hostile batch's, the edge lanes (two buckets of 16) and the wide
-    corrupted pack (and its first 4,096 lanes); every verdict also
-    against ed25519_ref (the edge lanes: its group law)."""
+    accumulator for accumulator (its optional output, K14's frozen
+    digits against the plain version's accumulators frozen, coordinate
+    for coordinate), on K1's output of each pack: the tampered commit's
+    and the bad window's and the hostile batch's at their buckets (256,
+    16,384, 16,384) and at their live widths (101, 4,848, 8,192: the main
+    path's since K14 launches over the live lanes), the edge lanes (two
+    buckets of 16)
+    and the wide corrupted pack (and its first 4,096 lanes); every
+    verdict also against ed25519_ref (the edge lanes: its group law)."""
     import numpy as np
 
     from cometbft_tpu_torch import convert
@@ -2371,26 +2512,31 @@ def _persig_cases(state, torch):
 
     ref = state["ref"]
 
-    def packed(items):
+    def packed(items, live=False):
         n = len(items[0])
-        a, r, s, h, valid = ed.pack_batch(*items, dev.bucket_size(n))
+        a, r, s, h, valid = ed.pack_batch(
+            *items, n if live else dev.bucket_size(n))
         want = [bool(v) and w for v, w in
                 zip(valid, _oracle(state, items) + [False] * len(valid))]
         return (a, r, s, h), want
 
     commit, _ = _with_sig(state["commits"][5][1], N_VALS // 4, 11, 0x40)
+    commit_items = _window_items(state, [(5, (state["commits"][5][0],
+                                              commit))])
+    window_items = _window_items(state, state["window_bad"][0])
     lanes = _persig_edges(ref)
     edges = _persig_arrays(lanes)
     edge_want = _persig_oracle(ref, lanes)
     check(all(ref.verify(*ln[5]) == w for ln, w in zip(lanes, edge_want)
               if ln[5] is not None), "K14 edge oracle")
     wide, wide_want = _persig_wide(state)
-    runs = [("commit, tampered",
-             *packed(_window_items(state, [(5, (state["commits"][5][0],
-                                                 commit))]))),
-            ("window, bad height",
-             *packed(_window_items(state, state["window_bad"][0]))),
-            ("batch, hostile", *packed(state["batch_items"]))]
+    runs = [("commit, tampered", *packed(commit_items)),
+            ("commit, tampered, live", *packed(commit_items, live=True)),
+            ("window, bad height", *packed(window_items)),
+            ("window, bad height, live", *packed(window_items, live=True)),
+            ("batch, hostile", *packed(state["batch_items"])),
+            ("batch, hostile, live", *packed(state["batch_items"],
+                                             live=True))]
     for b in range(2):
         sl = slice(b * PERSIG_EDGE_WIDTH, (b + 1) * PERSIG_EDGE_WIDTH)
         runs.append((f"edges {b + 1}",
@@ -2408,7 +2554,7 @@ def _persig_cases(state, torch):
         got, acc = cp.verify_ladder(pts, oks, st, ht, return_acc=True)
         plain, pacc = cp.verify_ladder_plain(pts, oks, st, ht,
                                              return_acc=True)
-        err = max(int((got != plain).sum()), _exact(acc, pacc))
+        err = max(int((got != plain).sum()), _exact(acc, _frozen25519(pacc)))
         verdicts = got.cpu().tolist()
         differ = [i for i, w in enumerate(want) if verdicts[i] != w]
         check(err == 0 and not differ, f"K14 {label}: differs from plain "
@@ -2883,7 +3029,7 @@ def _work(name, case):
         return nb * K13_SIG, 16 * 264 + nb * (2 * 88 + 2 * 256 + 2 * 88 + 2)
     if name == "ed25519_verify_ladder":
         # A and R points and ok flags, s and h limbs in, a verdict out, the
-        # B table once; the -A tables are the kernel's own scratch
+        # B table once; the -A tables live in shared memory only
         n = case["args"][2].shape[-1]
         return n * PERSIG_SIG, n * (2 * 320 + 2 + 2 * 64 + 1) + 16 * 320
     if name in HASH_KERNELS:
@@ -2899,8 +3045,8 @@ def _work(name, case):
 
 
 def _raw_persig(torch, args):
-    """K14 launched through its C function into a preallocated verdict
-    and scratch: the kernel's time without the wrapper's checks."""
+    """K14 launched through its C function into a preallocated verdict:
+    the kernel's time without the wrapper's checks."""
     from cometbft_tpu_torch.ops import cuda_persig as cp
     from cometbft_tpu_torch.ops import device as devmod
 
@@ -2908,11 +3054,9 @@ def _raw_persig(torch, args):
     n = int(args[2].shape[-1])
     dev = args[0].device
     out = torch.empty((n,), dtype=torch.bool, device=dev)
-    slots = -(-n // cp.SIGS_PER_BLOCK) * cp.SIGS_PER_BLOCK
-    scratch = torch.empty((slots, 16, 4, 20), dtype=torch.int32, device=dev)
     btab = devmod.constant(cp._ed()._BTAB_NP, dev, torch.int32)
-    call = (*(devmod.ptr(t) for t in (*args, btab, scratch)), n,
-            devmod.ptr(out), None, devmod.stream(args[0]))
+    call = (*(devmod.ptr(t) for t in (*args, btab)), n, devmod.ptr(out),
+            None, devmod.stream(args[0]))
 
     def launch():
         devmod.check_launch(lib.ed25519_verify_ladder(*call),
@@ -3050,6 +3194,8 @@ def phase_timing(state, torch):
                 extra["raw_ms"] = _time(torch, _raw_persig(torch,
                                                            case["args"]),
                                         (), 7, inner=10)
+                extra["bound_ms_20x13"] = _bound(
+                    state, case["shape"][0] * PERSIG_SIG_13, nbytes)[0]
                 extra["rejected"] = case["rejected"]
             if name == "secp_q_tables":
                 for step in ("walk", "rows"):

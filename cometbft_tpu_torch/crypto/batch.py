@@ -117,7 +117,9 @@ def _device_verify(pubkeys: list[bytes], parsed,
     large batch over the mesh first (crypto/mesh.maybe_split_verify:
     one RLC program per device) and localizes with the per-signature
     program split over the mesh, or with the mesh off over every local
-    card, as the JAX package does (ops/sharding.verify_batch_sharded)."""
+    card, as the JAX package does (ops/sharding.verify_batch_sharded):
+    over the split's bucket where there are several devices, else over
+    the live lanes (ops/sharding.localization_width)."""
     from ..ops import sharding
     from . import mesh
 
@@ -133,9 +135,10 @@ def _device_verify(pubkeys: list[bytes], parsed,
         if rlc_ok:
             return True, [True] * n
     devices = [device] if placed else mesh.mesh_devices()
-    bucket = sharding.auto_bucket(n, None if devices is None else len(devices))
+    width = sharding.localization_width(
+        n, None if devices is None else len(devices))
     a, r, s, h, valid = ed.pack_batch(pubkeys, [b""] * n, [b""] * n,
-                                      bucket, parsed=parsed)
+                                      width, parsed=parsed)
     verdict = sharding.verify_batch_sharded(a, r, s, h, devices=devices)
     out = (verdict.cpu().numpy() & valid)[:n].tolist()
     return all(out) and bool(out), out
@@ -157,9 +160,9 @@ def _device_verify_hash(pubkeys: list[bytes], msgs: list[bytes], parsed,
 
     An un-placed dispatch ("cuda", no index) splits a large batch over
     the mesh first (crypto/mesh.maybe_split_verify_hash); localization
-    runs on one device, as in the JAX package.  Raises
-    ValueError("message exceeds max_blocks") when a message outgrows
-    the static block bucket."""
+    runs on one device, as in the JAX package, over the n live lanes.
+    Raises ValueError("message exceeds max_blocks") when a message
+    outgrows the static block bucket."""
     from .. import convert
     from ..ops import device as devmod
     from ..ops import ed25519 as dev
@@ -180,7 +183,7 @@ def _device_verify_hash(pubkeys: list[bytes], msgs: list[bytes], parsed,
         if rlc_ok:
             return True, [True] * n
     a, r, s, bh, bl, nb, valid = ed.pack_batch_device_hash(
-        pubkeys, msgs, [b""] * n, dev.bucket_size(n), parsed=parsed)
+        pubkeys, msgs, [b""] * n, n, parsed=parsed)
     verdict = dev.verify_hash_kernel(*convert.batch_hash_from_numpy(
         a, r, s, bh, bl, nb, device))
     out = (verdict.cpu().numpy() & valid)[:n].tolist()

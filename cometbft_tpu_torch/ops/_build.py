@@ -52,7 +52,7 @@ SIGNATURES = {
         "ed25519_group_quads": [],
     },
     "ed25519_persig": {
-        "ed25519_verify_ladder": [_P] * 6 + [_I64, _P, _P, _P],
+        "ed25519_verify_ladder": [_P] * 5 + [_I64, _P, _P, _P],
         "ed25519_persig_threads": [],
     },
     "sha2_kernels": {

@@ -7,16 +7,17 @@ windows MSB first (3 doublings without T, one with T, the B row of s's
 nibble, the -A row of h's nibble), the add of -R, 3 cofactor doublings
 and the identity test.  The JAX package runs it as one XLA program (a
 lax.scan); eager torch runs it as ~10^5 small launches at 16,384
-signatures.  ops/csrc/ed25519_persig.cu runs it in one launch, a thread
-quad per signature (fe25519_quad.cuh), the static B table in shared
-memory and each signature's -A table in a global scratch the wrapper
-allocates, in the plain version's order, so its accumulator equals the
-plain version's limb for limb.
+signatures.  ops/csrc/ed25519_persig.cu runs it in one launch on a
+native field (fe25519_n.cuh: eight 32-bit words), in the plain version's
+order, so its accumulators equal the plain version's as field elements
+(frozen, coordinate for coordinate).  A quad of threads holds a
+signature's accumulator, one coordinate a thread, and the B table and
+each signature's -A table live in shared memory.
 
 What bounds it on the H100: integer multiply-adds, 3,037 field products
-a signature (1,017,960 multiply-adds), against 770 bytes in and one out;
-a quad's chain of ~820 product rounds in series is the latency floor at
-any width.
+a signature (195,730 multiply-adds on the native field's 8 x 8
+schoolbook and fold), against 770 bytes in and one out; a quad's chain
+of ~820 product rounds in series is the latency floor at any width.
 
 `verify_ladder` runs the plain version for a CPU tensor and launches K14
 for a CUDA tensor (or raises); `launches` counts the calls that launched.
@@ -30,7 +31,6 @@ from . import device as devmod
 from . import fe
 
 PERSIG_THREADS = 64      # K14's threads per block: csrc PERSIG_THREADS
-SIGS_PER_BLOCK = PERSIG_THREADS // 4
 NL = fe.NLIMBS
 
 
@@ -118,7 +118,8 @@ def verify_ladder(pts, oks, s_limbs, h_limbs, return_acc=False):
     """K1's (4, 20, 2N) int32 points and (2N,) bool ok flags of A || R,
     (16, N) int32 limbs of s and h -> (N,) bool verdicts (with
     return_acc, also the (4, 20, N) accumulators before the identity
-    test).  CPU tensor: the plain version; CUDA tensor: kernel K14."""
+    test: the kernel's frozen to canonical digits, the plain version's
+    weak).  CPU tensor: the plain version; CUDA tensor: kernel K14."""
     if not pts.is_cuda:
         return verify_ladder_plain(pts, oks, s_limbs, h_limbs, return_acc)
     devmod.require(s_limbs, "verify_ladder s limbs", torch.int32, (16, None))
@@ -141,13 +142,10 @@ def verify_ladder(pts, oks, s_limbs, h_limbs, return_acc=False):
     if n == 0:
         return (out, acc) if return_acc else out
     lib = _lib()
-    slots = -(-n // SIGS_PER_BLOCK) * SIGS_PER_BLOCK
-    scratch = torch.empty((slots, 16, 4, NL), dtype=torch.int32, device=dev)
     btab = devmod.constant(_ed()._BTAB_NP, dev, torch.int32)
     with torch.cuda.device(dev):
         rc = lib.ed25519_verify_ladder(
-            *(devmod.ptr(t) for t in (pts, oks, s_limbs, h_limbs, btab,
-                                      scratch)),
+            *(devmod.ptr(t) for t in (pts, oks, s_limbs, h_limbs, btab)),
             n, devmod.ptr(out), devmod.ptr(acc) if return_acc else None,
             devmod.stream(pts))
     devmod.check_launch(rc, "ed25519_verify_ladder")

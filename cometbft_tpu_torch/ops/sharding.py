@@ -61,6 +61,17 @@ def auto_bucket(n: int, n_devices: int | None = None) -> int:
     return b
 
 
+def localization_width(n: int, n_devices: int | None = None) -> int:
+    """Lanes the per-signature localization packs n signatures into:
+    auto_bucket where it splits over several devices (None: every local
+    card), whose evenly divided shards the split needs; n on one device,
+    where K1 and K14 launch over the live lanes (a hand kernel compiles
+    once for every width, so the bucket's filler lanes would only add
+    work)."""
+    nd = n_devices if n_devices is not None else device_count()
+    return auto_bucket(n, nd) if nd > 1 else n
+
+
 def verify_batch_sharded(a_words, r_words, s_limbs, h_limbs, devices=None):
     """Per-signature verdicts of pack_batch's arrays with the batch axis
     split into contiguous chunks over `devices` (None: every local

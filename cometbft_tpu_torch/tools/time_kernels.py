@@ -8,6 +8,7 @@ the main path's widths, and optionally count the instruction mix of K1's
 and K2's longest loops.
 
     python3 cometbft_tpu_torch/tools/time_kernels.py [--root DIR] [--sass]
+        [--k14]
 
 Run it as a file, not with -m.  --root is the checkout whose
 `cometbft_tpu_torch` is imported and built (default: the one holding
@@ -46,11 +47,12 @@ C function into a preallocated verdict at B = 4,096, at chip_smoke.py's
 package) and at 16,384, each first held against its plain version and
 the lanes' own verdicts: 64 lanes from the host's group law (u1, u2
 random, Q one of four keys, r = x(u1 G + u2 Q), a third with r + 1),
-tiled to the width, 10 calls a run.  K14 the same way at 16, 4,096 and
-16,384 signatures: 64 real signatures signed on the host from the seed
-(a third with s + 1), packed, tiled to the width, decompressed by K1 on
-the card, each shape held first against verify_ladder_plain and the
-lanes' verdicts; a checkout without K14 is recorded as "absent".
+tiled to the width, 10 calls a run.  K14 the same way at 16, 256,
+4,096, 4,848 and 16,384 signatures: 64 real signatures signed on the
+host from the seed (a third with s + 1), packed, tiled to the width,
+decompressed by K1 on the card, each shape held first against
+verify_ladder_plain and the lanes' verdicts; a checkout without K14 is
+recorded as "absent".  --k14 times K14 alone.
 --sass disassembles
 the built library with cuobjdump and prints, for each of the two
 kernels, the opcode counts of its longest loop (a backward branch and
@@ -72,7 +74,7 @@ WIDTHS = (128, 5120, 8192, 10240)
 SECP_KEYS = (4, 128, 192)                      # K11: keys
 SECP_SHAPES = ((256, 128), (4096, 128), (16384, 192))   # K12: (B, K)
 LADDER_SHAPES = (4096, 16, 16384)              # K13: B (16: the edge lanes)
-PERSIG_SHAPES = (16, 4096, 16384)              # K14: signatures
+PERSIG_SHAPES = (16, 256, 4096, 4848, 16384)   # K14: signatures
 K4_SHAPES = ((4, 4), (4, 10), (10, 8))     # commit, window, batch
 LOOP_BLKS = (512, 2048)                    # BLK for K6 and K7
 
@@ -306,8 +308,10 @@ def _ladder(torch, rec):
 def _persig(torch, rec):
     """K14 of the checkout: held against its plain version and the lanes'
     verdicts at each shape, then timed by raw launches into a
-    preallocated verdict and scratch.  Returns whether every shape held
-    (True where the checkout has no K14: "absent")."""
+    preallocated verdict.  Either C interface: with the -A tables in a
+    scratch the caller allocates (before K14 ran on the native field,
+    its tables in shared memory), or without.  Returns whether every
+    shape held (True where the checkout has no K14: "absent")."""
     from cometbft_tpu_torch.ops import _build
 
     if "ed25519_persig" not in _build.SIGNATURES:
@@ -338,6 +342,8 @@ def _persig(torch, rec):
     packed = ted.pack_batch(pubs, msgs, sigs, 64)[:4]
     want = [j % 3 != 1 for j in range(64)]
     lib = cp._lib()
+    scratch_arg = (_build.SIGNATURES["ed25519_persig"]
+                   ["ed25519_verify_ladder"][5] is ctypes.c_void_p)
     dev = torch.device("cuda")
     btab = devmod.constant(cp._ed()._BTAB_NP, dev, torch.int32)
     stream = torch.cuda.current_stream().cuda_stream
@@ -350,11 +356,12 @@ def _persig(torch, rec):
             dev)
         pts, oks = cd.decompress(torch.cat([aw, rw], dim=-1))
         out = torch.empty((nb,), dtype=torch.bool, device=dev)
-        slots = -(-nb // cp.SIGS_PER_BLOCK) * cp.SIGS_PER_BLOCK
-        scratch = torch.empty((slots, 16, 4, 20), dtype=torch.int32,
-                              device=dev)
-        call = (*map(devmod.ptr, (pts, oks, st, ht, btab, scratch)), nb,
-                devmod.ptr(out), None, stream)
+        ins = [pts, oks, st, ht, btab]
+        if scratch_arg:
+            slots = -(-nb // 16) * 16
+            ins.append(torch.empty((slots, 16, 4, 20), dtype=torch.int32,
+                                   device=dev))
+        call = (*map(devmod.ptr, ins), nb, devmod.ptr(out), None, stream)
         held = lib.ed25519_verify_ladder(*call) == 0
         plain = cp.verify_ladder_plain(pts, oks, st, ht)
         held = (held and bool((out == plain).all())
@@ -370,6 +377,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
     ap.add_argument("--sass", action="store_true")
+    ap.add_argument("--k14", action="store_true",
+                    help="time K14 alone")
     args = ap.parse_args()
     import torch
 
@@ -387,6 +396,11 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
+    if args.k14:
+        rec = {"card": card, "root": str(root)}
+        ok = _persig(torch, rec)
+        print(json.dumps(rec), flush=True)
+        return 0 if ok else 1
     gen = torch.Generator(device="cuda").manual_seed(20261017)
 
     def words(w):
