@@ -14,8 +14,7 @@ result):
              parallel), print the card's name and power limit, and
              report each kernel's registers, shared memory, stack and
              spills (ptxas -v) and each library's build seconds and
-             load ms; K11, K12, K13 and K14 must show neither a stack
-             nor spills;
+             load ms; K9-K14 must show neither a stack nor spills;
   2. commit  one 150-validator commit through verify_commit_light on the
              card: accept, one tampered signature (ErrInvalidSignature
              naming its index; one localization over its 101
@@ -61,7 +60,10 @@ result):
              signatures; a message over
              DEVICE_HASH_MAX_BLOCKS raising ValueError; a 10,000-validator
              ValidatorSet.hash() equal to the host Merkle root with one
-             K10 launch, and sum_sha256_many of 511 messages with none;
+             K10 launch (and, outside the count, its time split by stage:
+             leaf encoding, padding, copy to the card, K10, copy back,
+             the host's inner tree), and sum_sha256_many of 511
+             messages with none;
              the host packing time of pack_rlc_device_hash beside
              parse_and_hash + pack_rlc, and each route's time (printed,
              nothing claimed);
@@ -113,8 +115,11 @@ result):
              changed, and two with an 8-torsion component; K9 at the
              hash phase's four widths (128, 5,120, 8,192 and the 4,848
              of the window's localization) and K9 / K10 at their padding
-             boundaries, with rows whose block count is 0, word for word
-             and against hashlib; K10 at the 10,000 validator leaves;
+             boundaries, with rows whose block count is 0, and at the
+             warp-pair cases (the chain of 32 messages, one pair; 33
+             messages, a partial second pair; one message; one group
+             of 32 whose counts run 0..B), word for word and against
+             hashlib; K10 at the 10,000 validator leaves;
              K11 at K = 4, 128 and 192, at canonical value (it stores
              frozen tables, its plain version weak ones); K12 at the
              commit's, window's and batch's packs, at the commit's with r
@@ -147,7 +152,9 @@ result):
              K14 too, at each of its cases, with its bound also at the
              20 x 13-bit price of its design before), K11's
              walk and rows apart (raw_walk_ms, raw_rows_ms), for K9 and
-             K10 hashlib's time on the host for the same messages.
+             K10 hashlib's time on the host for the same messages and
+             the chain case's raw time and bound (the design's floor
+             for one message).
 The launch counters are reset before phase 2 and read after phase 4
 (the default engine: every one of K1-K4 and K14 must launch there, none
 of K5-K8), reset before and read after phase 5's path (its comparisons
@@ -444,10 +451,11 @@ def phase_build(state, torch):
     state["sm_clock_hz"] = float(clock) * 1e6
     state["card"] = card
     state["ptxas"] = ptxas
-    # K11-K14 keep their operands in registers: no spill, no stack (K11
+    # K9-K14 keep their operands in registers: no spill, no stack (K11
     # has two entry functions, K12 two and its out-of-line products)
     for kernel, entries in (("secp_q_tables", 2), ("secp_msm_verify", 2),
-                            ("secp_ladder", 1), ("ed25519_verify_ladder", 1)):
+                            ("secp_ladder", 1), ("ed25519_verify_ladder", 1),
+                            ("sha512_blocks", 1), ("sha256_blocks", 1)):
         found = _ptxas_of(state, kernel)
         check(len(found) >= entries and all(
             v.get(k, 0) == 0 for v in found.values()
@@ -459,6 +467,8 @@ def phase_build(state, torch):
             "load_ms": load_ms, "sources": sources,
             "max_sm_clock_mhz": float(clock),
             "k14_ptxas": _ptxas_of(state, "ed25519_verify_ladder"),
+            "k9_k10_ptxas": {name: _ptxas_of(state, name)
+                             for name in sorted(HASH_KERNELS)},
             "ptxas": ptxas}
 
 
@@ -1384,6 +1394,47 @@ def _hash_breakdown(torch, packed):
     return out
 
 
+def _valset_stages(torch, valset):
+    """ValidatorSet.hash()'s steps one by one, host wall with a sync
+    after each (single samples): the leaf encoding (SimpleValidator
+    bytes and the 0x00 prefix), the padding, the copy to the card, K10,
+    the copy back into 32-byte digests and the host's inner tree.
+    Returns ({stage: ms}, the root)."""
+    import numpy as np
+
+    from cometbft_tpu_torch import convert
+    from cometbft_tpu_torch.crypto import merkle
+    from cometbft_tpu_torch.ops import sha2
+
+    card = torch.device(DEVICE)
+    ms, t0 = {}, time.perf_counter()
+
+    def stage(name):
+        nonlocal t0
+        if card.type == "cuda":
+            torch.cuda.synchronize()
+        now = time.perf_counter()
+        ms[name] = (now - t0) * 1e3
+        t0 = now
+
+    leaves = [merkle.LEAF_PREFIX + v.bytes() for v in valset.validators]
+    stage("leaf_encoding")
+    blocks, nb = sha2.pad_sha256(leaves)
+    stage("padding")
+    args = (convert.words_from_numpy(blocks, card),
+            torch.from_numpy(nb).to(card))
+    stage("copy_to_card")
+    digests = sha2.sha256_blocks(*args)
+    stage("k10")
+    raw = digests.cpu().numpy().view(np.uint32).astype(">u4").tobytes()
+    hashes = [raw[32 * i:32 * i + 32] for i in range(len(leaves))]
+    stage("copy_back")
+    root = merkle._root_from_leaf_hashes(hashes)
+    stage("inner_tree")
+    ms["total"] = sum(ms.values())
+    return ms, root
+
+
 def phase_hash(state, torch):
     """The device-hash path, with the counts set to 0 just before it and
     read just after: each case through parse_batch and
@@ -1477,6 +1528,9 @@ def phase_hash(state, torch):
     host_root = merkle.hash_from_byte_slices(leaves)
     check(root == host_root, "ValidatorSet.hash() differs from the host "
           "Merkle root")
+    valset_stages, staged_root = _valset_stages(torch, valset)
+    check(staged_root == host_root, "ValidatorSet.hash() by stages differs "
+          "from the host Merkle root")
     check(valset_launches == {"sha256_blocks": 1},
           f"ValidatorSet.hash() launched {valset_launches}")
     check(not below_launches and below == [hashlib.sha256(x).digest()
@@ -1541,7 +1595,8 @@ def phase_hash(state, torch):
     state["valset_leaves"] = leaves
     return {"warm_up_seconds": warm_s, "path_seconds": path_s, "cases": rows,
             "valset": {"validators": N_VALSET, "seconds": valset_s,
-                       "launches": valset_launches},
+                       "launches": valset_launches,
+                       "stages_ms": valset_stages},
             "below_threshold": {"messages": len(below),
                                 "launches": below_launches},
             "launches": state["hash_launches"]}
@@ -2292,12 +2347,50 @@ def _sha_case(torch, name, label, msgs, arrays):
             "zero_rows": int((nb == 0).sum())}
 
 
+def _sha_length(rng, count, block_bytes):
+    """A seeded message length that pads to exactly max(count, 1)
+    blocks of block_bytes."""
+    lenbytes = 16 if block_bytes == 128 else 8
+    count = max(count, 1)
+    return rng.randrange(max(0, (count - 1) * block_bytes - lenbytes),
+                         count * block_bytes - lenbytes)
+
+
+def _sha_groups(rng, name, nblk):
+    """The warp-pair cases of K9 (nblk = 3) or K10 (nblk = 1): the chain
+    (32 messages of nblk blocks: one pair, the design's floor for one
+    message), 33 messages of 1..nblk blocks (a second pair with one live
+    lane), one message, and one group of 32 whose counts run 0..B (B =
+    nblk, or 2 for K10), each lane's message exactly its count long.
+    [(label, msgs, arrays)]."""
+    import numpy as np
+
+    from cometbft_tpu_torch.ops import sha2
+
+    bb = 128 if name == "sha512_blocks" else 64
+    pad = sha2.pad_sha512 if name == "sha512_blocks" else sha2.pad_sha256
+    out = []
+    for label, counts in (("chain", [nblk] * 32),
+                          ("ragged 33", [rng.randint(1, nblk)
+                                         for _ in range(33)]),
+                          ("one message", [nblk])):
+        msgs = [rng.randbytes(_sha_length(rng, c, bb)) for c in counts]
+        out.append((label, msgs, pad(msgs, nblk)))
+    bucket = max(nblk, 2)
+    counts = np.array([lane % (bucket + 1) for lane in range(32)],
+                      dtype=np.int32)
+    msgs = [rng.randbytes(_sha_length(rng, int(c), bb)) for c in counts]
+    arrays = list(pad(msgs, bucket))
+    arrays[-1] = np.where(counts == 0, 0, arrays[-1]).astype(np.int32)
+    out.append((f"counts 0..{bucket}", msgs, arrays))
+    return out
+
+
 def _sha_cases(state, torch):
     """K9 at the hash phase's widths and at the padding boundaries, K10
-    at the validator leaves and at its padding boundaries."""
+    at the validator leaves and at its padding boundaries; both at the
+    warp-pair cases of _sha_groups."""
     import random
-
-    import numpy as np
 
     from cometbft_tpu_torch.ops import sha2
 
@@ -2319,6 +2412,10 @@ def _sha_cases(state, torch):
     leaves = [b"\x00" + x for x in state["valset_leaves"]]
     k10 = [_sha_case(torch, "sha256_blocks", "validator leaves", leaves,
                      sha2.pad_sha256(leaves)), out["sha256_blocks"]]
+    for name, nblk, into in (("sha512_blocks", 3, k9),
+                             ("sha256_blocks", 1, k10)):
+        for label, msgs, arrays in _sha_groups(rng, name, nblk):
+            into.append(_sha_case(torch, name, label, msgs, arrays))
     return k9, k10
 
 
@@ -3100,11 +3197,12 @@ def _hashlib_ms(name, msgs):
 
 
 def _sass_block_loops():
-    """{kernel name: instruction count and opcode mix of its per-block
+    """{kernel name: instruction count and opcode mix of its longest
     loop} for K9 and K10 as nvcc compiled them (cuobjdump of the built
-    library; the rounds are unrolled, so the longest loop is one block),
-    to set beside SHA512_BLOCK_OPS and SHA256_BLOCK_OPS.  Information
-    only: a missing cuobjdump gives {"error": ...}."""
+    library; the round warp's block loop, its rounds unrolled, where the
+    compiler unrolls the chunks), to set beside SHA512_BLOCK_OPS and
+    SHA256_BLOCK_OPS.  Information only: a missing cuobjdump gives
+    {"error": ...}."""
     from cometbft_tpu_torch.ops import _build
 
     try:
@@ -3114,7 +3212,7 @@ def _sass_block_loops():
                                str(_build._target("sha2_kernels"))],
                               capture_output=True, text=True,
                               timeout=120).stdout
-        return {name: tk._loop_mix(sass, name.replace("_blocks", "_kernel"))
+        return {name: tk._loop_mix(sass, None, KERNEL_ENTRIES[name][0])
                 for name in HASH_KERNELS}
     except Exception as e:                    # noqa: BLE001
         return {"error": f"{type(e).__name__}: {e}"}
@@ -3138,14 +3236,16 @@ KERNEL_ENTRIES = {"secp_q_tables": ("q_bases_kernel", "q_rows_kernel"),
                   "secp_msm_verify": ("msm_verify_kernel", "7fesecpn3mul",
                                       "7fesecpn3sqr"),
                   "secp_ladder": ("13ladder_kernel",),
-                  "ed25519_verify_ladder": ("20verify_ladder_kernel",)}
+                  "ed25519_verify_ladder": ("20verify_ladder_kernel",),
+                  "sha512_blocks": ("6Sha512E",),
+                  "sha256_blocks": ("6Sha256E",)}
 # the kernels whose plain versions take seconds a call, timed once
 SLOW_PLAIN = SECP_KERNELS + ("ed25519_verify_ladder",)
 
 
 def _ptxas_of(state, name):
-    """ptxas -v's registers, stack and spills of a secp256k1 kernel's or
-    K14's entry functions."""
+    """ptxas -v's registers, stack and spills of the entry functions of
+    K9-K14."""
     return {k: v for k, v in state["ptxas"].items()
             if any(e in k for e in KERNEL_ENTRIES[name])}
 
@@ -3252,6 +3352,11 @@ def phase_timing(state, torch):
                          "min_ops_per_block": (
                              SHA512_BLOCK_OPS if name == "sha512_blocks"
                              else SHA256_BLOCK_OPS),
+                         "chain": {k: v for k, v in next(
+                             s for s in shapes if s["phase"] == "chain")
+                             .items() if k in ("shape", "ms", "raw_ms",
+                                               "bound_ms", "bound_by")},
+                         "ptxas": _ptxas_of(state, name),
                          "sass_block_loop": sass.get(name, sass)}
                         if name in HASH_KERNELS else {})})
     for name, fn in _kernels().items():   # timing launches do not count

@@ -11,7 +11,9 @@ holding the uint32 bit patterns; digests come back the same way.
 
 Routes: sha256_blocks / sha512_blocks launch their CUDA kernel
 (ops/csrc/sha2_kernels.cu) for CUDA tensors and run the plain version
-for CPU tensors.  The plain versions hold every 32-bit word in int64,
+for CPU tensors.  The kernels copy blocks 16 bytes at a time, so their
+launchers refuse block tensors whose data is not 16-byte aligned (a
+RuntimeError; fresh tensors always are).  The plain versions hold every 32-bit word in int64,
 masked to 32 bits after each add and left shift (torch's `>>` on int32
 sign-extends), and build SHA-512's 64-bit rotations from the hi/lo
 halves as the JAX package does.
@@ -20,12 +22,15 @@ K10 replaces the JAX package's `sha256_blocks` (ops/sha2.py:78) and K9
 its `sha512_blocks` (:210): plain `jnp` under `lax.fori_loop` /
 `lax.scan`, which XLA compiles into one program.  Eager torch would
 launch tens of thousands of small ops per call instead (80 rounds x B
-blocks x tens of ops), so the card runs one hand-written kernel: one
-thread per message, the state and the 16-word schedule in registers,
-the rounds unrolled, blocks past n_blocks skipped.  What bounds them on
-the H100: 32-bit integer operations (a SHA-512 block is ~5,800 of them
-against 128 bytes read); one thread per message leaves the card short
-of threads below ~30,000 messages.
+blocks x tens of ops), so the card runs one hand-written kernel, both
+built on ops/csrc/sha2.cuh: a warp pair for each group of 32 messages,
+the schedule warp staging each block into shared memory one block ahead
+and expanding its schedule into K + W there, the round warp running only
+the rounds, blocks past n_blocks skipped.  The fewest 32-bit operations a
+block needs on the H100 are 3,536 (SHA-512, against 128 bytes read) and
+1,384 (SHA-256); at the main path's widths, at most one warp for each
+of the card's schedulers, what bounds a call is one message's serial
+chain of rounds on one warp, not the card's throughput.
 """
 
 from __future__ import annotations

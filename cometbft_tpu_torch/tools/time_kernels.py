@@ -8,7 +8,7 @@ the main path's widths, and optionally count the instruction mix of K1's
 and K2's longest loops.
 
     python3 cometbft_tpu_torch/tools/time_kernels.py [--root DIR] [--sass]
-        [--k14]
+        [--k14 | --sha]
 
 Run it as a file, not with -m.  --root is the checkout whose
 `cometbft_tpu_torch` is imported and built (default: the one holding
@@ -53,6 +53,15 @@ host from the seed (a third with s + 1), packed, tiled to the width,
 decompressed by K1 on the card, each shape held first against
 verify_ladder_plain and the lanes' verdicts; a checkout without K14 is
 recorded as "absent".  --k14 times K14 alone.
+--sha times K9 (sha512_blocks) and K10 (sha256_blocks) alone, launched
+through their C functions into preallocated outputs as chip_smoke.py's
+_raw_sha does: K9 at 32 / 128 / 5,120 / 8,192 / 16,384 messages of 3
+blocks each (R||A||M lengths 240-367 from a seeded generator), K10 at
+32 and 10,000 one-block messages (lengths 0-55) and at 80 messages of
+one or two blocks (lengths 0-119), 20 calls a run; each shape is first
+held word for word against its plain version and against hashlib, and
+the library's ptxas lines (registers, shared memory, stack) come with
+the times.
 --sass disassembles
 the built library with cuobjdump and prints, for each of the two
 kernels, the opcode counts of its longest loop (a backward branch and
@@ -75,6 +84,8 @@ SECP_KEYS = (4, 128, 192)                      # K11: keys
 SECP_SHAPES = ((256, 128), (4096, 128), (16384, 192))   # K12: (B, K)
 LADDER_SHAPES = (4096, 16, 16384)              # K13: B (16: the edge lanes)
 PERSIG_SHAPES = (16, 256, 4096, 4848, 16384)   # K14: signatures
+SHA512_SHAPES = (32, 128, 5120, 8192, 16384)   # K9: messages, 3 blocks
+SHA256_SHAPES = ((32, 1), (10000, 1), (80, 2))  # K10: (messages, B)
 K4_SHAPES = ((4, 4), (4, 10), (10, 8))     # commit, window, batch
 LOOP_BLKS = (512, 2048)                    # BLK for K6 and K7
 
@@ -105,13 +116,15 @@ def _time(torch, fn, args, reps=7, inner=20):
     return times[len(times) // 2]
 
 
-def _loop_mix(sass: str, kernel: str) -> dict:
+def _loop_mix(sass: str, kernel: str, key: str | None = None) -> dict:
     """Opcode counts of the longest loop of `kernel` (the SASS section of
-    the entry function whose mangled name starts with _Z<len><kernel>,
-    with the device functions it calls that follow it)."""
+    the entry function whose mangled name starts with _Z<len><kernel>, or
+    holds `key` where given, with the device functions it calls that
+    follow it)."""
     lines = sass.splitlines()
-    tag = f"Function : _Z{len(kernel)}{kernel}"
-    start = next(i for i, ln in enumerate(lines) if tag in ln)
+    key = key or f"Function : _Z{len(kernel)}{kernel}"
+    start = next(i for i, ln in enumerate(lines)
+                 if "Function : " in ln and key in ln)
     end = next((i for i in range(start + 1, len(lines))
                 if "Function : " in lines[i]), len(lines))
     ins = []
@@ -373,12 +386,79 @@ def _persig(torch, rec):
     return ok
 
 
+def _sha_msgs(rng, n, lo, hi):
+    """n messages of seeded lengths in [lo, hi] and seeded bytes."""
+    lens = rng.integers(lo, hi + 1, n)
+    return [rng.bytes(int(k)) for k in lens]
+
+
+def _sha(torch, rec):
+    """K9 and K10 of the checkout: each shape held word for word against
+    its plain version and against hashlib, then timed by raw launches of
+    its C function into preallocated outputs.  Returns whether every
+    shape held."""
+    import hashlib
+
+    import numpy as np
+
+    from cometbft_tpu_torch import convert
+    from cometbft_tpu_torch.ops import _build
+    from cometbft_tpu_torch.ops import device as devmod
+    from cometbft_tpu_torch.ops import sha2
+
+    lib = _build.load("sha2_kernels")
+    log = _build.build_info.get("sha2_kernels", {}).get("log", "")
+    rec["sha_ptxas"] = [ln.strip() for ln in log.splitlines()
+                        if any(k in ln for k in ("Compiling entry", "Used",
+                                                 "stack frame"))]
+    rng = np.random.default_rng(20261018)
+    dev = torch.device("cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    cases = [("sha512_blocks", n, 3, _sha_msgs(rng, n, 240, 367))
+             for n in SHA512_SHAPES]
+    cases += [("sha256_blocks", n, nblk,
+               _sha_msgs(rng, n, 0, 55 if nblk == 1 else 119))
+              for n, nblk in SHA256_SHAPES]
+    ok = True
+    rec.update(sha_equal={}, k9_ms={}, k10_ms={})
+    for name, n, nblk, msgs in cases:
+        if name == "sha512_blocks":
+            *blocks, nb = sha2.pad_sha512(msgs, nblk)
+            lib_hash, key, into = hashlib.sha512, str(n), rec["k9_ms"]
+        else:
+            *blocks, nb = sha2.pad_sha256(msgs, nblk)
+            lib_hash, key, into = hashlib.sha256, f"{n}xB{nblk}", \
+                rec["k10_ms"]
+        args = [convert.words_from_numpy(b, dev) for b in blocks]
+        args.append(torch.from_numpy(nb).to(dev))
+        outs = [torch.empty((n, 8), dtype=torch.int32, device=dev)
+                for _ in blocks]
+        call = (*map(devmod.ptr, args), n, nblk, *map(devmod.ptr, outs),
+                stream)
+        fn = getattr(lib, name)
+        held = fn(*call) == 0
+        plain = getattr(sha2, name + "_plain")(*args)
+        plain = plain if isinstance(plain, tuple) else (plain,)
+        held = held and all(bool((o == p).all()) for o, p in zip(outs, plain))
+        rows = [o.cpu().numpy() for o in outs]
+        digest = (sha2.digest512_to_bytes if name == "sha512_blocks"
+                  else sha2.digest256_to_bytes)
+        held = held and all(digest(*(r[i] for r in rows)) ==
+                            lib_hash(m).digest() for i, m in enumerate(msgs))
+        rec["sha_equal"][f"{name} {key}"] = held
+        into[key] = _time(torch, fn, call)
+        ok = ok and held
+    return ok
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
     ap.add_argument("--sass", action="store_true")
     ap.add_argument("--k14", action="store_true",
                     help="time K14 alone")
+    ap.add_argument("--sha", action="store_true",
+                    help="time K9 and K10 alone")
     args = ap.parse_args()
     import torch
 
@@ -396,9 +476,9 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
-    if args.k14:
+    if args.k14 or args.sha:
         rec = {"card": card, "root": str(root)}
-        ok = _persig(torch, rec)
+        ok = (_persig if args.k14 else _sha)(torch, rec)
         print(json.dumps(rec), flush=True)
         return 0 if ok else 1
     gen = torch.Generator(device="cuda").manual_seed(20261017)
