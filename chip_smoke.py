@@ -88,7 +88,33 @@ result):
              (ed25519: ed25519_ref.verify's).  Outside the count: the
              host waits inside verify_msm_async (none allowed), the
              split's launch-before-read order, the host packing time;
-  8. engines the same entry points under each MSM engine configuration
+  8. sr25519 sr25519 on the Edwards kernels (crypto/sr25519.py: ristretto
+             decode, Merlin challenge and Edwards re-encoding on the host,
+             then K1-K4, and K1 + K14 for each localization): a
+             150-validator sr25519 commit through verify_commit_light
+             (accept: phase 2's whole RLC program; one bad signature:
+             one more K1 and K14, over its 101), a 48-commit window
+             through DeferredSigBatch (4,848 signatures over 101 keys) as
+             its A table is built and on its table hit, with its host
+             stages timed (collect, ristretto decode, Merlin challenge,
+             Edwards compress, pack_rlc, the device program), and with one
+             bad signature named by height; BASELINE's mixed commit (50
+             ed25519, 50 secp256k1 and 50 sr25519 keys) through
+             verify_commit, accepted and with one bad signature of each
+             type; MixedBatchVerifier over phase 7's mixed items plus 1,000
+             sr25519 signatures over 128 keys, one bad of each type,
+             launching exactly its three sub-batches' kernels.  Every
+             verdict is the host oracle's (CpuSr25519BatchVerifier, in the
+             pool);
+  9. sigcache the verdict cache on: the ed25519 and sr25519 commits each
+             verified twice (the second launches nothing), the tampered
+             commit twice (the second raises the same error with no
+             launch), a 48-commit window of which 24 commits were
+             verified before (only the 2,424 misses reach the card), and
+             the window re-verified with every triple a hit (signatures
+             per second, as bench.py's bench_commit_reverify); the cache
+             is off again after it, as every other phase runs;
+ 10. engines the same entry points under each MSM engine configuration
              (the JAX package's flags, set on the port's modules):
              window_loop (K6), window_loop_blk2048 (K6 under
              COMETBFT_TPU_PALLAS_BLK=2048: 1, 8 and 16 rows per output
@@ -101,8 +127,11 @@ result):
              batch, each verdict the default engine's; each must launch
              exactly its configuration's kernels (and K1 + K14 for each
              localization);
-  9. kernels each kernel vs its plain version on the card, at the shapes
-             phases 2-4 gave it (exact integer equality; K1 at the four
+ 11. kernels each kernel vs its plain version on the card, at the shapes
+             phases 2-4 gave it, and K1-K4 and K14 also at the shapes
+             of phase 8's sr25519 packs that those lack (the mixed
+             commit's and the mixed batch's: N = 64 and 1,024, K14 at 50
+             and 1,000 live lanes) (exact integer equality; K1 at the four
              main-path widths and on hostile encodings, K1 and K2 also at
              the ragged widths 1, 7 and 129; K3 also at the commit's two
              sides and on a 32-lane slice, where its Horner chain is all
@@ -144,9 +173,10 @@ result):
              key; and its first 4,096 lanes), verdict for verdict and
              accumulator for accumulator (frozen, coordinate for
              coordinate), and against ed25519_ref;
- 10. timing  each kernel's median time over runs of 10 launches back to
-             back and each plain version's median time per call (CUDA
-             events), with the bound the card could reach for the same
+ 12. timing  each kernel's median time over runs of 10 launches back to
+             back and each plain version's time for one call (CUDA
+             events; the kernels phase's comparison warmed it), with
+             the bound the card could reach for the same
              work; for K9-K13 also their time launched through the C
              function into preallocated outputs (raw_ms, no wrapper;
              K14 too, at each of its cases, with its bound also at the
@@ -159,9 +189,11 @@ The launch counters are reset before phase 2 and read after phase 4
 (the default engine: every one of K1-K4 and K14 must launch there, none
 of K5-K8), reset before and read after phase 5's path (its comparisons
 with the plain version excluded), and reset before and read after each
-configuration of phase 8, reset before and read after phase 6's path
-(its host-hash comparisons excluded), and reset before and read after
-phase 7's path (its host-wait and order checks excluded).
+configuration of phase 10, reset before and read after phase 6's path
+(its host-hash comparisons excluded), reset before and read after
+phase 7's path (its host-wait and order checks excluded), and reset
+before and read after phases 8 and 9 (their oracle checks excluded).
+The signature-verdict cache is off in every phase but 9.
 Keys and messages come from a fixed seed; the RLC weights are drawn from
 `secrets`, as they are in use.
 """
@@ -241,12 +273,24 @@ SECP_ABSENT = N_VALS - (2 * N_VALS // 3 + 1)   # 49 absent of each window commit
 # WINDOW times it the window's
 COMMIT_SIGS = 2 * N_VALS // 3 + 1
 WIDE_LANES, WIDE_KEYS = 16384, 192   # K12's corrupted wide pack
+SR_COMMIT_HEIGHT = 9
+SR_WINDOW_BASE = 3000          # the sr25519 window's first height
+SR_MIXED_HEIGHT = 11           # BASELINE's mixed commit
+SR_MIXED_KEYS = 50             # keys of each type in the mixed commit
+MIXED_SR = 1000                # sr25519 signatures beside bench.py's mixed
+# one RLC program on the default engine: the whole program (or the
+# A-table build and the cached-A program: the same launches), and the
+# cached-A program on an A-table hit
+RLC_WHOLE = {"ed25519_decompress": 2, "ed25519_table17_neg": 2,
+             "ed25519_msm_window_major": 2, "ed25519_fold_verify": 1}
+RLC_HIT = {"ed25519_decompress": 1, "ed25519_table17_neg": 1,
+           "ed25519_msm_window_major": 2, "ed25519_fold_verify": 1}
 N_VALSET = 10_000              # ValidatorSet.hash(): upstream's largest sets
 MESH_SHARDS = (1, 2, 4)
 NVLINK_BYTES_PER_S = 450e9     # one direction, H100 SXM data sheet
 
 # the engine flags (ops/ed25519 USE_PALLAS_*, ops/cuda_msm WIN_GROUP, BLK) at
-# the JAX package's defaults, and each configuration of phase 6: its
+# the JAX package's defaults, and each configuration of phase 10: its
 # flags, the kernels it must launch (and no other), whether it also runs
 # the 8,192 batch
 DEFAULT_ENGINE = {"USE_PALLAS_MSM_MAJOR": True, "USE_PALLAS_MSM_LOOP": True,
@@ -399,11 +443,16 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import multiprocessing as mp
 
+    from cometbft_tpu_torch.crypto import sigcache
+
+    # every phase but `sigcache` runs its programs with the verdict cache
+    # off: a cached triple would skip the launches each phase checks
+    sigcache.set_enabled(False)
     torch.cuda.set_device(0)
     state = {}
     phases = [phase_build, phase_fixtures, phase_commit, phase_window,
-              phase_batch, phase_mesh, phase_hash, phase_secp, phase_engines,
-              phase_kernels, phase_timing]
+              phase_batch, phase_mesh, phase_hash, phase_secp, phase_sr25519,
+              phase_sigcache, phase_engines, phase_kernels, phase_timing]
     ctx = mp.get_context("spawn")
     with ctx.Pool(os.cpu_count() or 1) as pool:
         state["pool"] = pool
@@ -686,6 +735,19 @@ class _Stopwatch:
         return out
 
 
+class _Widths(_Stopwatch):
+    """_Stopwatch that also keeps each call's lane width (its first
+    argument's last axis)."""
+
+    def __init__(self, fn, torch):
+        super().__init__(fn, torch)
+        self.widths = []
+
+    def __call__(self, *a, **k):
+        self.widths.append(int(a[0].shape[-1]))
+        return super().__call__(*a, **k)
+
+
 class _CatStopwatch(_Stopwatch):
     """Stands in for a module's `torch`: times torch.cat as _Stopwatch
     does, everything else passes through."""
@@ -820,11 +882,14 @@ def phase_commit(state, torch):
             "first_localization": state["first_localization"]}
 
 
-def _run_window(state, val, commits):
+def _run_window(state, val, commits, vals=None):
+    """`commits` through DeferredSigBatch over `vals` (the ed25519 set by
+    default): the signatures verified."""
     batch = val.DeferredSigBatch()
     for h, (bid, commit) in commits:
-        val.verify_commit_light(CHAIN_ID, state["vals"], bid, h, commit,
-                                defer_to=batch, device=DEVICE)
+        val.verify_commit_light(CHAIN_ID, state["vals"] if vals is None
+                                else vals, bid, h, commit, defer_to=batch,
+                                device=DEVICE)
     n = batch.count()
     batch.verify(device=DEVICE)
     return n
@@ -898,16 +963,24 @@ def phase_window(state, torch):
             "persig_seconds": persig_s}
 
 
-def _window_items(state, commits):
+def _light_entries(vals, commits):
+    """The (key, sign bytes, sig) triples verify_commit_light collects
+    from `commits`, in order."""
     from cometbft_tpu_torch.types import validation as val
 
     batch = val.DeferredSigBatch()
     for h, (bid, commit) in commits:
-        val.verify_commit_light(CHAIN_ID, state["vals"], bid, h, commit,
-                                defer_to=batch, device=DEVICE)
-    ents = batch._entries
-    return ([e[2].bytes() for e in ents], [e[3] for e in ents],
-            [e[4] for e in ents])
+        val.verify_commit_light(CHAIN_ID, vals, bid, h, commit, defer_to=batch,
+                                device=DEVICE)
+    return [(e[2], e[3], e[4]) for e in batch._entries]
+
+
+def _window_items(state, commits, vals=None):
+    """(pubkeys, msgs, sigs) of `commits` as DeferredSigBatch collects
+    them, over `vals` (the ed25519 set by default)."""
+    ents = _light_entries(state["vals"] if vals is None else vals, commits)
+    return ([p.bytes() for p, _, _ in ents], [m for _, m, _ in ents],
+            [sg for _, _, sg in ents])
 
 
 def _clean_batch(state, torch):
@@ -1991,7 +2064,565 @@ def phase_secp(state, torch):
             "launches": state["secp_launches"]}
 
 
-# -- phase 8: the engine configurations --------------------------------------
+# -- phase 8: sr25519 ---------------------------------------------------------
+
+def _sr_pubkeys(seeds):
+    sys.path.insert(0, str(ROOT))
+    from cometbft_tpu_torch.crypto import sr25519 as sr
+    return [sr.PrivKey.generate(s).pub_key().bytes() for s in seeds]
+
+
+def _sr_sign(jobs):
+    sys.path.insert(0, str(ROOT))
+    from cometbft_tpu_torch.crypto import sr25519 as sr
+    return [sr.PrivKey.generate(seed).sign(msg) for seed, msg in jobs]
+
+
+def _sr_verify(jobs):
+    """The host oracle: the port's CpuSr25519BatchVerifier (schnorrkel's
+    cofactorless equation on ristretto points, in pure Python)."""
+    sys.path.insert(0, str(ROOT))
+    from cometbft_tpu_torch.crypto import batch as cb
+    from cometbft_tpu_torch.crypto import sigcache
+
+    sigcache.set_enabled(False)
+    bv = cb.CpuSr25519BatchVerifier()
+    for pk, m, s in jobs:
+        bv.add(pk, m, s)
+    return bv.verify()[1] if jobs else []
+
+
+def _sr_oracle(state, items):
+    """CpuSr25519BatchVerifier's verdict on each (pubkey, msg, sig), in
+    the pool, once a run."""
+    known = state.setdefault("sr_oracle", {})
+    todo = sorted({t for t in zip(*items) if t not in known})
+    known.update(zip(todo, _pool_map(state["pool"], _sr_verify, todo)))
+    return [known[t] for t in zip(*items)]
+
+
+def _typed_oracle(state, triples):
+    """The host oracle of each (key object, msg, sig) by its key type:
+    ed25519_ref.verify, _verify_py or CpuSr25519BatchVerifier."""
+    by_type = {"ed25519": _oracle, "secp256k1": _secp_oracle,
+               "sr25519": _sr_oracle}
+    slots, groups = [], {}
+    for pk, m, s in triples:
+        g = groups.setdefault(pk.type(), [])
+        slots.append((pk.type(), len(g)))
+        g.append((pk.bytes(), m, s))
+    got = {kt: by_type[kt](state, tuple(zip(*g))) for kt, g in groups.items()}
+    return [got[kt][i] for kt, i in slots]
+
+
+def _sr_fixtures(state):
+    """The sr25519 phase's keys and signatures, signed in the pool: a
+    150-validator sr25519 set, its commit (all present) and a window of 48
+    commits; the BASELINE mixed set (50 ed25519, 50 secp256k1 and 50
+    sr25519 keys) and its commit; 1,000 sr25519 signatures over 128 keys
+    for MixedBatchVerifier."""
+    from cometbft_tpu_torch.crypto import ed25519 as ed
+    from cometbft_tpu_torch.crypto import secp256k1 as sk
+    from cometbft_tpu_torch.crypto import sr25519 as sr
+    from cometbft_tpu_torch.types import block, canonical
+    from cometbft_tpu_torch.types.timestamp import Timestamp
+    from cometbft_tpu_torch.types.validator_set import Validator, ValidatorSet
+
+    pool = state["pool"]
+    t0 = time.perf_counter()
+    seeds = [_seed("sr25519 validator", i) for i in range(N_VALS)]
+    m_seeds = {kt: [_seed(f"mixed {kt}", i) for i in range(SR_MIXED_KEYS)]
+               for kt in ("ed25519", "secp256k1", "sr25519")}
+    b_seeds = [_seed("sr25519 batch", i) for i in range(SECP_KEYS)]
+    sr_pubs = _pool_map(pool, _sr_pubkeys, seeds + m_seeds["sr25519"]
+                        + b_seeds)
+    pubs = sr_pubs[:N_VALS]
+    m_pubs = {"sr25519": sr_pubs[N_VALS:N_VALS + SR_MIXED_KEYS],
+              "ed25519": _pool_map(pool, _pubkeys, m_seeds["ed25519"]),
+              "secp256k1": _pool_map(pool, _secp_pubkeys,
+                                     m_seeds["secp256k1"])}
+    b_pubs = sr_pubs[N_VALS + SR_MIXED_KEYS:]
+    key_cls = {"ed25519": ed.PubKey, "secp256k1": sk.PubKey,
+               "sr25519": sr.PubKey}
+    vals = ValidatorSet([Validator(sr.PubKey(p), 10) for p in pubs])
+    mvals = ValidatorSet([Validator(key_cls[kt](p), 10)
+                          for kt, ps in m_pubs.items() for p in ps])
+    seed_of = {sr.PubKey(p).address(): ("sr25519", s)
+               for p, s in zip(pubs, seeds)}
+    for kt, ps in m_pubs.items():
+        seed_of.update({key_cls[kt](p).address(): (kt, s)
+                        for p, s in zip(ps, m_seeds[kt])})
+
+    heights = [SR_COMMIT_HEIGHT] + [SR_WINDOW_BASE + h for h in range(WINDOW)]
+    rows, jobs = {}, {"ed25519": [], "secp256k1": [], "sr25519": []}
+    for h, vs in [(h, vals) for h in heights] + [(SR_MIXED_HEIGHT, mvals)]:
+        bid = block.BlockID(_seed("sr25519 block", h), block.PartSetHeader(
+            1, _seed("sr25519 parts", h)))
+        rows[h] = (bid, [])
+        for i, v in enumerate(vs.validators):
+            ts = Timestamp(1_700_000_000 + h, 1000 * i + 11)
+            sb = canonical.vote_sign_bytes(CHAIN_ID, canonical.PRECOMMIT, h, 0,
+                                           bid, ts)
+            kt, seed = seed_of[v.address]
+            rows[h][1].append((v.address, ts, kt, len(jobs[kt])))
+            jobs[kt].append((seed, sb))
+    b_msgs = [b"mixed-commit-sr25519-" + i.to_bytes(8, "little") * 4
+              for i in range(MIXED_SR)]
+    b_first = len(jobs["sr25519"])
+    jobs["sr25519"] += [(b_seeds[i % SECP_KEYS], m)
+                        for i, m in enumerate(b_msgs)]
+    sigs = {"sr25519": _pool_map(pool, _sr_sign, jobs["sr25519"]),
+            "ed25519": _pool_map(pool, _sign, jobs["ed25519"]),
+            "secp256k1": _pool_map(pool, _secp_sign, jobs["secp256k1"])}
+    commits = {}
+    for h, (bid, slots) in rows.items():
+        cs = [block.CommitSig(block.BLOCK_ID_FLAG_COMMIT, addr, ts,
+                              sigs[kt][j]) for addr, ts, kt, j in slots]
+        commits[h] = (bid, block.Commit(h, 0, bid, cs))
+    batch = [(sr.PubKey(b_pubs[i % SECP_KEYS]), m,
+              sigs["sr25519"][b_first + i]) for i, m in enumerate(b_msgs)]
+    state["sr25519"] = {"vals": vals, "mvals": mvals, "commits": commits,
+                        "heights": heights[1:], "batch": batch}
+    return {"sr25519_signatures": len(jobs["sr25519"]),
+            "ed25519_signatures": len(jobs["ed25519"]),
+            "secp256k1_signatures": len(jobs["secp256k1"]),
+            "signing_seconds": time.perf_counter() - t0}
+
+
+class _Accum:
+    """Stands in for a module function: adds up its calls' host
+    seconds."""
+
+    def __init__(self, mod, attr):
+        self.mod, self.attr, self.fn = mod, attr, getattr(mod, attr)
+        self.seconds, self.calls = 0.0, 0
+
+    def __enter__(self):
+        setattr(self.mod, self.attr, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.attr, self.fn)
+
+    def __call__(self, *a, **k):
+        t0 = time.perf_counter()
+        try:
+            return self.fn(*a, **k)
+        finally:
+            self.seconds += time.perf_counter() - t0
+            self.calls += 1
+
+
+class _SrPacks:
+    """Keeps the pack_rlc and pack_batch results that the sr25519
+    verifier makes (CudaSr25519BatchVerifier only, in whichever thread),
+    for the kernels phase to hold K1-K4 and K14 against their plain
+    versions at the sr25519 path's shapes."""
+
+    def __init__(self, state):
+        import threading
+
+        self.state, self.tls = state, threading.local()
+
+    def __enter__(self):
+        from cometbft_tpu_torch.crypto import batch as cb
+        from cometbft_tpu_torch.crypto import ed25519 as ed
+
+        self.saved = [(cb.CudaSr25519BatchVerifier, "_verify_items",
+                       cb.CudaSr25519BatchVerifier._verify_items),
+                      (ed, "pack_rlc", ed.pack_rlc),
+                      (ed, "pack_batch", ed.pack_batch)]
+        tls, packs = self.tls, self.state.setdefault("sr_packs", {})
+        verify, pack_rlc, pack_batch = (s[2] for s in self.saved)
+
+        def mark(bv):
+            tls.items = bv._items
+            try:
+                return verify(bv)
+            finally:
+                tls.items = None
+
+        def keep(kind, fn):
+            def run(*a, **k):
+                out = fn(*a, **k)
+                items = getattr(tls, "items", None)
+                if items is not None and out is not None:
+                    packs.setdefault((kind, int(out[1].shape[-1])),
+                                     (out, list(items)))
+                return out
+            return run
+        cb.CudaSr25519BatchVerifier._verify_items = mark
+        ed.pack_rlc = keep("rlc", pack_rlc)
+        ed.pack_batch = keep("persig", pack_batch)
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, fn in self.saved:
+            setattr(obj, name, fn)
+
+
+def _sr_window_stages(state, torch, commits):
+    """The window once more with each host stage of its sr25519 path
+    timed (summed over its calls): collecting the 48 commits
+    (verify_commit_light with defer_to), ristretto decode, the Merlin
+    challenge, the Edwards compression (the three inside
+    to_edwards_inputs), pack_rlc, and the device program (rlc_verify, its
+    verdict read back).  (signatures, ms by stage, calls by stage)."""
+    from cometbft_tpu_torch.crypto import ed25519 as ed
+    from cometbft_tpu_torch.crypto import ed25519_ref as ref
+    from cometbft_tpu_torch.crypto import ristretto as rst
+    from cometbft_tpu_torch.crypto import sr25519 as sr
+    from cometbft_tpu_torch.types import validation as val
+
+    with _Accum(rst, "decode") as dec, \
+            _Accum(sr, "challenge_scalar") as chal, \
+            _Accum(ref, "point_compress") as comp, \
+            _Accum(sr, "to_edwards_inputs") as conv, \
+            _Accum(ed, "pack_rlc") as pack, \
+            _Timed(ed, "rlc_verify", torch) as rlc:
+        t0 = time.perf_counter()
+        batch = val.DeferredSigBatch()
+        for h, (bid, commit) in commits:
+            val.verify_commit_light(CHAIN_ID, state["sr25519"]["vals"], bid,
+                                    h, commit, defer_to=batch, device=DEVICE)
+        n = batch.count()
+        t1 = time.perf_counter()
+        batch.verify(device=DEVICE)
+        t2 = time.perf_counter()
+    ms = {"collect": t1 - t0, "ristretto_decode": dec.seconds,
+          "merlin_challenge": chal.seconds, "edwards_compress": comp.seconds,
+          "to_edwards_inputs": conv.seconds, "pack_rlc": pack.seconds,
+          "rlc_verify": rlc.seconds, "verify": t2 - t1, "window": t2 - t0}
+    return n, {k: v * 1e3 for k, v in ms.items()}, {
+        "ristretto_decode": dec.calls, "merlin_challenge": chal.calls,
+        "edwards_compress": comp.calls, "to_edwards_inputs": conv.calls,
+        "rlc_verify": rlc.calls}
+
+
+def _expect_raise(fn, label, message, ctx=None):
+    from cometbft_tpu_torch.types import validation as val
+
+    try:
+        fn()
+    except val.ErrInvalidSignature as e:
+        check(str(e) == message, f"{label}: wrong message {e}")
+        check(ctx is None or getattr(e, "failed_ctx", None) == ctx,
+              f"{label}: blamed {getattr(e, 'failed_ctx', None)}, not {ctx}")
+        return str(e)
+    raise PhaseError(f"{label} accepted")
+
+
+def phase_sr25519(state, torch):
+    """The sr25519 path on the card (crypto/sr25519 on the Edwards
+    kernels K1-K4, K14 for each localization), with the verdict cache
+    off and the counts set to 0 just before it and read just after.
+    A fresh A-table cache, so each step's RLC program is known: the whole
+    program at a key set's first sighting, the table built at its second
+    (the same launches), the cached-A program (RLC_HIT) after.  Steps:
+    the 150-validator commit (101 signatures, K = N = 128) accepted; the
+    48-commit window (4,848 signatures over 101 keys, K = 128, N = 5,120)
+    as its table is built and on its table hit, the second run with its
+    host stages timed; the commit with one signature's s flipped (one
+    RLC program and one more K1 and K14, over its 101); the window with
+    one bad signature (its height named, one localization over 4,848);
+    BASELINE's mixed commit (50 keys of each type, through verify_commit:
+    accepted, then one bad signature of each type, the first in commit
+    order named); MixedBatchVerifier over the secp phase's mixed items
+    and 1,000 sr25519 signatures over 128 keys, one bad of each type,
+    launching exactly its three sub-batches' kernels.  Every verdict is
+    the host oracle's (CpuSr25519BatchVerifier, ed25519_ref.verify,
+    _verify_py)."""
+    from cometbft_tpu_torch.crypto import batch as cb
+    from cometbft_tpu_torch.crypto import ed25519 as ed
+    from cometbft_tpu_torch.crypto import secp256k1 as sk
+    from cometbft_tpu_torch.crypto import sigcache
+    from cometbft_tpu_torch.types import validation as val
+
+    check(not sigcache.enabled(), "the verdict cache is on")
+    fixtures = _sr_fixtures(state)
+    s = state["sr25519"]
+    vals, mvals = s["vals"], s["mvals"]
+    commits = [(h, s["commits"][h]) for h in s["heights"]]
+    ed._A_TABLE_CACHE = cache = ed.ATableCache()
+    qcache = sk.q_table_cache()
+    _zero_counts()                          # the sr25519 path starts here
+    t_path = time.perf_counter()
+    steps = []
+
+    def step(label, fn, widths=(), programs=None):
+        before, h0, m0 = _counts(), cache.hits, cache.misses
+        q0 = qcache.misses
+        with _Timed(ed, "rlc_verify", torch) as rlc, \
+                _persig(torch) as persig, \
+                _Timed(sk, "verify_msm_batch", torch) as msm:
+            t0 = time.perf_counter()
+            out = fn()
+            secs = time.perf_counter() - t0
+        rec = {"step": label, "seconds": secs,
+               "launches": _launched(before, _counts()),
+               "rlc_programs": len(rlc.each), "table_hits": cache.hits - h0,
+               "table_builds": cache.misses - m0,
+               "localization_widths": sorted(persig.widths)}
+        # the calls are counted by list appends: the mixed steps run their
+        # sub-batches in threads
+        want = _merge(*([RLC_HIT] * rec["table_hits"]
+                        + [RLC_WHOLE] * (len(rlc.each) - rec["table_hits"])
+                        + [PERSIG_LAUNCHES] * len(persig.each)
+                        + [{"secp_msm_verify": len(msm.each),
+                            "secp_q_tables": qcache.misses - q0}]))
+        want = {k: v for k, v in want.items() if v}
+        check(rec["launches"] == want, f"sr25519 {label} launched "
+              f"{rec['launches']}, not {want}")
+        check(rec["localization_widths"] == sorted(widths), f"sr25519 {label}"
+              f": localizations over {rec['localization_widths']} lanes, not "
+              f"{sorted(widths)}")
+        if programs is not None:
+            got = (len(rlc.each), rec["table_builds"], rec["table_hits"])
+            check(got == programs, f"sr25519 {label}: (RLC programs, table "
+                  f"builds, table hits) {got}, not {programs}")
+        steps.append(rec)
+        return out
+
+    bid, commit = s["commits"][SR_COMMIT_HEIGHT]
+    with _SrPacks(state):
+        step("commit accept", lambda: val.verify_commit_light(
+            CHAIN_ID, vals, bid, SR_COMMIT_HEIGHT, commit, device=DEVICE),
+            programs=(1, 0, 0))
+        check(steps[-1]["launches"] == RLC_WHOLE, "the sr25519 commit's "
+              "accept is not phase_commit's whole RLC program")
+        n = step("window, table built", lambda: _run_window(
+            state, val, commits, vals), programs=(1, 1, 0))
+        n_hit, stage_ms, stage_calls = step(
+            "window, table hit, stages timed",
+            lambda: _sr_window_stages(state, torch, commits),
+            programs=(1, 0, 1))
+        check(n == n_hit == WINDOW * COMMIT_SIGS, f"windows of {n} and "
+              f"{n_hit} signatures")
+        runs = [{"step": st["step"], "signatures": n,
+                 "sigs_per_s": n / st["seconds"]} for st in steps[-2:]]
+
+        bad_idx = N_VALS // 3
+        tampered, sig = _with_sig(commit, bad_idx, 40, 0x20)
+        step("commit reject", lambda: _expect_raise(
+            lambda: val.verify_commit_light(CHAIN_ID, vals, bid,
+                                            SR_COMMIT_HEIGHT, tampered,
+                                            device=DEVICE),
+            "sr25519 commit reject", f"wrong signature (#{bad_idx}): "
+            f"{sig.hex()}"), widths=[COMMIT_SIGS], programs=(1, 0, 1))
+        bad_h = s["heights"][len(s["heights"]) // 4]
+        bad_commit, bad_sig = _with_sig(s["commits"][bad_h][1], 5, 40, 0x20)
+        bad = [(h, (b, bad_commit if h == bad_h else c)) for h, (b, c)
+               in commits]
+        step("window reject", lambda: _expect_raise(
+            lambda: _run_window(state, val, bad, vals),
+            "sr25519 window reject",
+            f"wrong signature in commit at height {bad_h}: {bad_sig.hex()}",
+            bad_h), widths=[WINDOW * COMMIT_SIGS], programs=(1, 0, 1))
+
+        # BASELINE: Ed25519 + secp256k1 + sr25519 in one commit
+        mbid, mcommit = s["commits"][SR_MIXED_HEIGHT]
+        step("mixed commit accept", lambda: val.verify_commit(
+            CHAIN_ID, mvals, mbid, SR_MIXED_HEIGHT, mcommit, device=DEVICE),
+            programs=(2, 0, 0))
+        kinds = [v.pub_key.type() for v in mvals.validators]
+        bad_m = sorted(i for kt in ("ed25519", "secp256k1", "sr25519")
+                       for i in [[j for j, k in enumerate(kinds)
+                                  if k == kt][SR_MIXED_KEYS // 5]])
+        mbad = mcommit
+        for i in bad_m:
+            mbad, _ = _with_sig(mbad, i, 40, 0x20)
+        step("mixed commit reject", lambda: _expect_raise(
+            lambda: val.verify_commit(CHAIN_ID, mvals, mbid, SR_MIXED_HEIGHT,
+                                      mbad, device=DEVICE),
+            "mixed commit reject", f"wrong signature (#{bad_m[0]}): "
+            f"{mbad.signatures[bad_m[0]].signature.hex()}"),
+            widths=[SR_MIXED_KEYS, SR_MIXED_KEYS], programs=(2, 2, 0))
+
+        # MixedBatchVerifier: the secp phase's 9,000 + 1,000 and 1,000 sr25519
+        items = list(state["secp"]["mixed"]) + list(s["batch"])
+        bad_b = (MIXED_ED // 3, MIXED_ED + MIXED_SECP // 2,
+                 MIXED_ED + MIXED_SECP + MIXED_SR // 2)
+        for i in bad_b:
+            pk, m, sg = items[i]
+            items[i] = (pk, m + b"!", sg)
+
+        def mixed():
+            mv = cb.MixedBatchVerifier(device=DEVICE)
+            for it in items:
+                mv.add(*it)
+            return mv.verify()
+        ok, verdicts = step("mixed batch", mixed,
+                            widths=[MIXED_ED, MIXED_SR], programs=(2, 0, 0))
+    path_s = time.perf_counter() - t_path
+    state["sr25519_launches"] = _counts()
+    launched = {k for k, v in state["sr25519_launches"].items() if v}
+    check(launched == DEFAULT_KERNELS | {"secp_msm_verify"} or
+          launched == DEFAULT_KERNELS | {"secp_msm_verify", "secp_q_tables"},
+          f"the sr25519 path launched {sorted(launched)}")
+
+    # verdicts against the host oracles (outside the count)
+    t0 = time.perf_counter()
+    want = _typed_oracle(state, items)
+    differ = [i for i, (a, b) in enumerate(zip(verdicts, want)) if a != b]
+    check(not differ and not ok and
+          [i for i, v in enumerate(want) if not v] == list(bad_b),
+          f"mixed batch verdicts differ from the host oracles at {differ[:8]}")
+    for label, triples, bad_at in (
+            ("commit", _light_entries(vals, [(SR_COMMIT_HEIGHT,
+                                              (bid, commit))]), []),
+            ("commit reject", _light_entries(vals, [(SR_COMMIT_HEIGHT,
+                                                     (bid, tampered))]),
+             [bad_idx]),
+            ("window", _light_entries(vals, commits), []),
+            ("window reject", _light_entries(vals, bad),
+             [bad_h]),
+            ("mixed commit", [(v.pub_key, sb, cs.signature) for v, sb, cs in
+                              zip(mvals.validators,
+                                  mcommit.vote_sign_bytes_all(CHAIN_ID),
+                                  mcommit.signatures)], []),
+            ("mixed commit reject",
+             [(v.pub_key, sb, cs.signature) for v, sb, cs in
+              zip(mvals.validators, mbad.vote_sign_bytes_all(CHAIN_ID),
+                  mbad.signatures)], bad_m)):
+        got = _typed_oracle(state, triples)
+        rejected = [i for i, v in enumerate(got) if not v]
+        if label == "window reject":
+            rejected = [s["heights"][i // COMMIT_SIGS] for i in rejected]
+        check(rejected == bad_at, f"sr25519 {label}: the oracle rejects "
+              f"{rejected[:8]}, not {bad_at}")
+    oracle_s = time.perf_counter() - t0
+    for name, fn in _kernels().items():  # the checks' launches do not count
+        fn.launches = state["sr25519_launches"][name]
+    return {"fixtures": fixtures, "path_seconds": path_s, "window_runs": runs,
+            "window_stage_ms": stage_ms, "window_stage_calls": stage_calls,
+            "steps": steps, "oracle_seconds": oracle_s,
+            "launches": state["sr25519_launches"]}
+
+
+# -- phase 9: the signature-verdict cache -------------------------------------
+
+def phase_sigcache(state, torch):
+    """The verdict cache on (set_enabled(True), reset()), with the counts
+    set to 0 just before and read just after: the ed25519 and sr25519
+    150-validator commits each verified twice (the first launches one RLC
+    program, the second nothing); the tampered ed25519 commit verified
+    twice on an empty cache (the first one RLC program and one
+    localization, the second the same error and no launch); a 48-commit
+    window whose first 24 commits were verified before (only the 2,424
+    misses reach the card: K1's widths and the launches show it); the
+    4,848-signature window re-verified with every triple a hit, its
+    signatures per second through DeferredSigBatch and through
+    sigcache.partition alone (bench.py's bench_commit_reverify).  The
+    cache is off again at the end, and empty."""
+    from cometbft_tpu_torch.crypto import ed25519 as ed
+    from cometbft_tpu_torch.crypto import sigcache
+    from cometbft_tpu_torch.ops import cuda_decompress
+    from cometbft_tpu_torch.ops import ed25519 as dev
+    from cometbft_tpu_torch.types import validation as val
+
+    cache = ed._A_TABLE_CACHE
+    sigcache.set_enabled(True)
+    sigcache.reset()
+    _zero_counts()                          # the cached path starts here
+    steps = []
+    try:
+        def step(label, fn, hits_only=False):
+            before, h0 = _counts(), cache.hits
+            st0 = sigcache.cache().stats()
+            k1 = _Widths(cuda_decompress.decompress, torch)
+            cuda_decompress.decompress = k1
+            try:
+                with _Timed(ed, "rlc_verify", torch) as rlc, \
+                        _persig(torch) as persig:
+                    t0 = time.perf_counter()
+                    out = fn()
+                    secs = time.perf_counter() - t0
+            finally:
+                cuda_decompress.decompress = k1.fn
+            st1 = sigcache.cache().stats()
+            rec = {"step": label, "ms": secs * 1e3,
+                   "launches": _launched(before, _counts()),
+                   "rlc_programs": rlc.calls,
+                   "localizations": persig.calls,
+                   "k1_widths": k1.widths,
+                   **{k: st1[k] - st0[k] for k in ("hits", "negative_hits",
+                                                   "misses", "insertions")}}
+            hits = cache.hits - h0
+            want = _merge(*([RLC_HIT] * hits + [RLC_WHOLE] * (rlc.calls - hits)
+                            + [PERSIG_LAUNCHES] * persig.calls))
+            check(rec["launches"] == {k: v for k, v in want.items() if v},
+                  f"sigcache {label} launched {rec['launches']}")
+            if hits_only:
+                check(rec["launches"] == {} and rec["misses"] == 0,
+                      f"sigcache {label}: {rec['misses']} misses, launches "
+                      f"{rec['launches']}")
+            steps.append(rec)
+            return out
+
+        s = state["sr25519"]
+        for label, vals, (bid, commit), h in (
+                ("ed25519 commit", state["vals"], state["commits"][5], 5),
+                ("sr25519 commit", s["vals"],
+                 s["commits"][SR_COMMIT_HEIGHT], SR_COMMIT_HEIGHT)):
+            for run, hits_only in (("first", False), ("again", True)):
+                step(f"{label} {run}", lambda: val.verify_commit_light(
+                    CHAIN_ID, vals, bid, h, commit, device=DEVICE), hits_only)
+            check(steps[-2]["rlc_programs"] == 1 and
+                  steps[-2]["misses"] == COMMIT_SIGS, f"{label}: first run "
+                  f"{steps[-2]}")
+
+        sigcache.reset()
+        bid, commit = state["commits"][5]
+        bad_idx = N_VALS // 4
+        tampered, sig = _with_sig(commit, bad_idx, 11, 0x40)
+        message = f"wrong signature (#{bad_idx}): {sig.hex()}"
+        for run, hits_only in (("first", False), ("again", True)):
+            step(f"ed25519 commit reject {run}", lambda: _expect_raise(
+                lambda: val.verify_commit_light(
+                    CHAIN_ID, state["vals"], bid, 5, tampered, device=DEVICE),
+                "cached reject", message), hits_only)
+        check(steps[-2]["localizations"] == 1 and
+              steps[-1]["negative_hits"] >= 1, f"reject runs {steps[-2:]}")
+
+        sigcache.reset()
+        commits = [(h, state["commits"][h]) for h in state["heights"]]
+        half = len(commits) // 2
+        step("window, first 24 commits", lambda: _run_window(
+            state, val, commits[:half]))
+        n = step("window, 48 commits, 24 cached",
+                 lambda: _run_window(state, val, commits))
+        rec = steps[-1]
+        misses = (len(commits) - half) * COMMIT_SIGS
+        check(rec["hits"] == half * COMMIT_SIGS and rec["misses"] == misses
+              and rec["rlc_programs"] == 1, f"partial window {rec}")
+        check(max(rec["k1_widths"]) == max(steps[-2]["k1_widths"]) ==
+              dev.pad_width(misses), f"K1 widths {rec['k1_widths']}: not "
+              f"the {misses} misses' {dev.pad_width(misses)}")
+        t0 = time.perf_counter()
+        step("window re-verified, all hits",
+             lambda: _run_window(state, val, commits), hits_only=True)
+        reverify_s = time.perf_counter() - t0
+        triples = _light_entries(state["vals"], commits)
+        iters = 5
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            verdicts, miss = sigcache.partition(triples, label="bench")
+            check(not miss and all(verdicts), "partition missed")
+        partition_s = time.perf_counter() - t0
+        stats = sigcache.cache().stats()
+    finally:
+        sigcache.set_enabled(False)
+        sigcache.reset()
+    state["sigcache_launches"] = _counts()
+    _zero_counts()
+    return {"steps": steps, "window_signatures": n,
+            "reverify_sigs_per_s": n / reverify_s,
+            "partition_sigs_per_s": len(triples) * iters / partition_s,
+            "cache_stats": stats, "launches": state["sigcache_launches"]}
+
+
+
+# -- phase 10: the engine configurations -------------------------------------
 
 def phase_engines(state, torch):
     """Each configuration drives the commit, the window and (where
@@ -2041,7 +2672,7 @@ def phase_engines(state, torch):
     return {"configurations": rows}
 
 
-# -- phase 9: kernel vs plain ------------------------------------------------
+# -- phase 11: kernel vs plain -----------------------------------------------
 
 def _hostile_words(state, torch):
     """K1 input at W = 8192: the phase-4 public keys (two of them
@@ -2260,6 +2891,24 @@ def phase_kernels(state, torch):
                                    "max_abs_err": e7,
                                    "args": (tab, mg[j], negs[j], blk),
                                    "phase": phase})
+    # phase 8's sr25519 packs at the shapes the ed25519 packs above do not
+    # have: K1-K3 on both sides, K4 on their partials
+    held = {(int(t[0].shape[-1]), int(t[1].shape[-1])) for t in shapes.values()}
+    sr_folds = []
+    for (kind, width), (packed, items) in sorted(state["sr_packs"].items()):
+        if kind != "rlc" or (packed[0].shape[-1], width) in held:
+            continue
+        label = f"sr25519 N = {width}"
+        t = convert.packed_from_numpy(packed, DEVICE)
+        parts = []
+        for side, (w, mags, negs) in (("A", (t[0], t[2], t[3])),
+                                      ("R", (t[1], t[4], t[5]))):
+            pt, _ = k1_case(f"{label} {side}", w)
+            k2_case(f"{label} {side}", pt)
+            parts.append(k3_case(f"{label} {side}", cm.table17_neg(pt),
+                                 mags, negs))
+        sr_folds.append((label, all(_sr_oracle(state, tuple(zip(*items)))),
+                         *parts))
     cases["ed25519_decompress"] = k1
     cases["ed25519_table17_neg"] = k2
     cases["ed25519_msm_window_major"] = k3
@@ -2289,7 +2938,7 @@ def phase_kernels(state, torch):
              main_k3[1]["partials"]),
             ("window reject", False, bad_pa, bad_pr)):
         k4_case(label, want, pa, pr)
-    for label, want, pa, pr in _fold_sets(state, torch):
+    for label, want, pa, pr in sr_folds + _fold_sets(state, torch):
         k4_case(label, want, pa, pr)
     cases["ed25519_fold_verify"] = k4
     cases["sha512_blocks"], cases["sha256_blocks"] = _sha_cases(state, torch)
@@ -2644,6 +3293,15 @@ def _persig_cases(state, torch):
                  tuple(np.ascontiguousarray(x[:, :quarter]) for x in wide),
                  wide_want[:quarter]))
     runs.append(("wide, corrupted", wide, wide_want))
+    held = {int(arrays[2].shape[-1]) for _, arrays, _ in runs}
+    for (kind, width), (packed_sr, items) in sorted(
+            state["sr_packs"].items()):
+        # phase 8's localizations at the widths the runs above do not have
+        if kind == "persig" and width not in held:
+            *arrays, valid = packed_sr
+            runs.append((f"sr25519, live {width}", tuple(arrays), [
+                bool(v) and w for v, w in
+                zip(valid, _sr_oracle(state, tuple(zip(*items))))]))
     out = []
     for label, arrays, want in runs:
         aw, rw, st, ht = convert.batch_from_numpy(*arrays, DEVICE)
@@ -2665,16 +3323,7 @@ def _persig_cases(state, torch):
 def _secp_window_items(state, commits):
     """The secp window's (pubkeys, msgs, sigs) as DeferredSigBatch
     collects them."""
-    from cometbft_tpu_torch.types import validation as val
-
-    sp = state["secp"]
-    batch = val.DeferredSigBatch()
-    for h, (bid, commit) in commits:
-        val.verify_commit_light(CHAIN_ID, sp["vals"], bid, h, commit,
-                                defer_to=batch, device=DEVICE)
-    ents = batch._entries
-    return ([e[2].bytes() for e in ents], [e[3] for e in ents],
-            [e[4] for e in ents])
+    return _window_items(state, commits, state["secp"]["vals"])
 
 
 def _nibbles_msb(v: int):
@@ -3037,14 +3686,16 @@ def _raw_secp(torch, name, args, step=None):
     return launch
 
 
-# -- phase 10: timing --------------------------------------------------------
+# -- phase 12: timing -------------------------------------------------------
 
-def _time(torch, fn, args, reps, inner=1):
+def _time(torch, fn, args, reps, inner=1, warm=True):
     """Median over reps of the CUDA-event time of `inner` calls made back
     to back, divided by inner: with inner > 1 the launches queue behind
     each other, which hides the wrapper's host time wherever a launch
-    takes longer than it."""
-    fn(*args)
+    takes longer than it.  warm=False skips the first, untimed call, for
+    a function the caller has run on these arguments already."""
+    if warm:
+        fn(*args)
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
@@ -3239,7 +3890,7 @@ KERNEL_ENTRIES = {"secp_q_tables": ("q_bases_kernel", "q_rows_kernel"),
                   "ed25519_verify_ladder": ("20verify_ladder_kernel",),
                   "sha512_blocks": ("6Sha512E",),
                   "sha256_blocks": ("6Sha256E",)}
-# the kernels whose plain versions take seconds a call, timed once
+# the kernels whose rows carry raw_ms, the per-lane price and ptxas
 SLOW_PLAIN = SECP_KERNELS + ("ed25519_verify_ladder",)
 
 
@@ -3278,10 +3929,11 @@ def phase_timing(state, torch):
         shapes = []
         for case in state["cases"][name]:
             ms = _time(torch, fn, case["args"], 7, inner=10)
-            # the secp and K14 plain versions take seconds a call (10^5
-            # launches)
-            plain_ms = _time(torch, plain[name], case["args"],
-                             1 if name in SLOW_PLAIN else 3)
+            # one call of the plain version, warmed by the kernels
+            # phase's comparison on the same arguments: the plain
+            # versions are host-bound (thousands of small launches, 10^5
+            # for secp and K14), seconds a call, 1-2x between runs
+            plain_ms = _time(torch, plain[name], case["args"], 1, warm=False)
             ops, nbytes = _work(name, case)
             bound_ms, bound_by = _bound(state, ops, nbytes)
             extra = {k: case[k] for k in ("group", "blk", "row", "zero_rows")
@@ -3320,6 +3972,8 @@ def phase_timing(state, torch):
                    "mesh": state["mesh_launches"][name],
                    "hash": state["hash_launches"][name],
                    "secp": state["secp_launches"][name],
+                   "sr25519": state["sr25519_launches"][name],
+                   "sigcache": state["sigcache_launches"][name],
                    **{cfg: c[name]
                       for cfg, c in state["engine_launches"].items()}}
         if name in DEFAULT_KERNELS:
@@ -3330,7 +3984,8 @@ def phase_timing(state, torch):
             launches = by_path["secp"]
         else:
             launches = sum(v for k, v in by_path.items()
-                           if k not in ("main", "mesh", "hash", "secp"))
+                           if k not in ("main", "mesh", "hash", "secp",
+                                        "sr25519", "sigcache"))
         source, replaces = KERNELS[name]
         rows.append({"name": name, "route": "cuda", "source": CSRC + source,
                      "replaces": replaces, "launches": launches,

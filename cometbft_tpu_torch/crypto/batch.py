@@ -9,9 +9,18 @@ verification, by key type (the counterpart of `cometbft_tpu.crypto.batch`).
 - CudaSecp256k1BatchVerifier runs the secp256k1 MSM program (K11 tables
   through the QTableCache, K12), or with COMETBFT_TPU_SECP_MSM=0 the
   ladder (K13); its verdicts are per signature.
-- CpuEd25519BatchVerifier / CpuSecp256k1BatchVerifier are the host loops
-  (pure Python), used below the device threshold of their key type or
-  when COMETBFT_TPU_PROVIDER=cpu.
+- CudaSr25519BatchVerifier runs sr25519 on the ed25519 programs: the
+  host decodes each ristretto point and re-encodes it in Edwards form,
+  and the Merlin challenge takes SHA-512's place
+  (crypto/sr25519.to_edwards_inputs); then _device_verify, as ed25519.
+- CpuEd25519BatchVerifier / CpuSecp256k1BatchVerifier /
+  CpuSr25519BatchVerifier are the host loops (pure Python), used below
+  the device threshold of their key type or when
+  COMETBFT_TPU_PROVIDER=cpu.
+- Every verifier's verify() inserts the verdicts it computed into the
+  signature-verdict cache (crypto/sigcache), under its key type;
+  consulting the cache is the callers' part (types/validation,
+  safe_verify).
 - MixedBatchVerifier splits a mixed-key batch by key type, runs each
   type's verifier (concurrently when there are several) and merges the
   verdicts in insertion order; a key type with no batch verifier is
@@ -32,6 +41,7 @@ import os
 from typing import Protocol
 
 from . import ed25519 as ed
+from . import sigcache
 
 
 class BatchVerifier(Protocol):
@@ -41,7 +51,11 @@ class BatchVerifier(Protocol):
 
 
 class _SigCollector:
-    """Shared add/count scaffolding: items are (pubkey_bytes, msg, sig)."""
+    """Shared add/count scaffolding: items are (pubkey_bytes, msg, sig).
+    verify() wraps the subclass's _verify_items() and inserts every
+    verdict into the signature-verdict cache under KEY_TYPE."""
+
+    KEY_TYPE = "ed25519"
 
     def __init__(self):
         self._items: list[tuple[bytes, bytes, bytes]] = []
@@ -53,12 +67,19 @@ class _SigCollector:
     def count(self) -> int:
         return len(self._items)
 
+    def verify(self) -> tuple[bool, list[bool]]:
+        ok, verdicts = self._verify_items()
+        if self._items:
+            sigcache.insert_many(self._items, verdicts,
+                                 key_type=self.KEY_TYPE)
+        return ok, verdicts
+
 
 class _CpuLoopVerifier(_SigCollector):
     """Host per-signature loop; subclasses provide _check(pk, msg, sig),
     a ValueError counting as a reject."""
 
-    def verify(self) -> tuple[bool, list[bool]]:
+    def _verify_items(self) -> tuple[bool, list[bool]]:
         verdicts = []
         for pk, m, s in self._items:
             try:
@@ -79,6 +100,8 @@ class CpuEd25519BatchVerifier(_CpuLoopVerifier):
 class CpuSecp256k1BatchVerifier(_CpuLoopVerifier):
     """ECDSA host loop (crypto/secp256k1._verify_py)."""
 
+    KEY_TYPE = "secp256k1"
+
     def _check(self, pk, m, s):
         from . import secp256k1 as sk
         return sk.PubKey(pk).verify_signature(m, s)
@@ -91,7 +114,7 @@ class CudaEd25519BatchVerifier(_SigCollector):
         super().__init__()
         self.device = device
 
-    def verify(self) -> tuple[bool, list[bool]]:
+    def _verify_items(self) -> tuple[bool, list[bool]]:
         if not self._items:
             return False, []
         pks = [i[0] for i in self._items]
@@ -200,11 +223,13 @@ class CudaSecp256k1BatchVerifier(_SigCollector):
     no index) splits a large batch over the mesh first
     (crypto/mesh.maybe_split_secp_verify)."""
 
+    KEY_TYPE = "secp256k1"
+
     def __init__(self, device):
         super().__init__()
         self.device = device
 
-    def verify(self) -> tuple[bool, list[bool]]:
+    def _verify_items(self) -> tuple[bool, list[bool]]:
         from ..ops import ed25519 as ed_dev
         from ..ops import secp256k1 as dev
         from . import mesh
@@ -229,6 +254,48 @@ class CudaSecp256k1BatchVerifier(_SigCollector):
         return all(out) and bool(out), out
 
 
+class CpuSr25519BatchVerifier(_CpuLoopVerifier):
+    """Schnorrkel host loop (crypto/sr25519.PubKey.verify_signature)."""
+
+    KEY_TYPE = "sr25519"
+
+    def _check(self, pk, m, s):
+        from . import sr25519 as sr
+        return sr.PubKey(pk).verify_signature(m, s)
+
+
+class CudaSr25519BatchVerifier(_SigCollector):
+    """sr25519 batches on the ed25519 programs on `device`: each A and R
+    decoded from ristretto on the host and re-encoded in Edwards form,
+    the Merlin challenge in place of SHA-512's h
+    (crypto/sr25519.to_edwards_inputs), then _device_verify as for
+    ed25519 (RLC program, localization on a reject).  A structural
+    reject becomes a zero key and no parse, so its lane is invalid."""
+
+    KEY_TYPE = "sr25519"
+
+    def __init__(self, device):
+        super().__init__()
+        self.device = device
+
+    def _verify_items(self) -> tuple[bool, list[bool]]:
+        from . import sr25519 as sr
+
+        if not self._items:
+            return False, []
+        ed_pubs, parsed = [], []
+        for pk, m, s in self._items:
+            t = sr.to_edwards_inputs(pk, m, s)
+            if t is None:
+                ed_pubs.append(b"\x00" * 32)
+                parsed.append(None)
+            else:
+                a_ed, r_ed, s_int, k = t
+                ed_pubs.append(a_ed)
+                parsed.append((r_ed, s_int, k))
+        return _device_verify(ed_pubs, parsed, self.device)
+
+
 # below this many signatures the host loop wins (CometBFT's analog is
 # batchVerifyThreshold = 2; the device round-trip has a fixed cost)
 DEVICE_THRESHOLD = int(os.environ.get("COMETBFT_TPU_BATCH_THRESHOLD", "8"))
@@ -248,20 +315,28 @@ def _device_threshold(key_type: str) -> int:
 
 def safe_verify(pub_key, msg: bytes, sig: bytes) -> bool:
     """verify_signature with backend errors mapped to invalid: the one
-    rule every host single-verify loop follows."""
+    rule every host single-verify loop follows.  It goes through the
+    signature-verdict cache: a triple verified anywhere in the process
+    answers here for one SHA-256, and a fresh verdict is inserted."""
+    v = sigcache.get(pub_key, msg, sig)
+    if v is not None:
+        return v
     try:
-        return bool(pub_key.verify_signature(msg, sig))
+        v = bool(pub_key.verify_signature(msg, sig))
     except Exception:
-        return False
+        v = False
+    sigcache.insert(pub_key, msg, sig, v)
+    return v
 
 
-# the key types the port batches: the JAX package's less sr25519, which
-# is not ported yet (its keys go through MixedBatchVerifier's singles)
-_SUPPORTED = {"ed25519", "secp256k1"}
+# the key types the port batches, as the JAX package does
+_SUPPORTED = {"ed25519", "sr25519", "secp256k1"}
 
 _CPU_BY_TYPE = {"ed25519": CpuEd25519BatchVerifier,
+                "sr25519": CpuSr25519BatchVerifier,
                 "secp256k1": CpuSecp256k1BatchVerifier}
 _CUDA_BY_TYPE = {"ed25519": CudaEd25519BatchVerifier,
+                 "sr25519": CudaSr25519BatchVerifier,
                  "secp256k1": CudaSecp256k1BatchVerifier}
 
 

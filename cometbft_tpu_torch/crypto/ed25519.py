@@ -14,11 +14,11 @@ import collections
 import hashlib
 import os
 import secrets
-import threading
 from dataclasses import dataclass
 
 import numpy as np
 
+from ..libs import lockrank
 from . import ed25519_ref as ref
 
 KEY_TYPE = "ed25519"
@@ -309,7 +309,8 @@ class ATableCache:
     the A side) can stay on the card across dispatches.  Keyed by
     (a_words bytes, device): each device of a split keeps its own copy.
     LRU-bounded by a byte budget (COMETBFT_TPU_A_CACHE_BYTES, default
-    128 MiB) and an entry cap.  Thread-safe."""
+    128 MiB) and an entry cap.  Thread-safe: its lock has the rank name
+    "ed25519.atable" (libs/lockrank)."""
 
     # Below this many A slots the saved work is smaller than the cost of
     # keeping a table: small-K batches stay on the whole program.
@@ -324,7 +325,7 @@ class ATableCache:
         self._entries = collections.OrderedDict()   # key -> (entry, nbytes)
         self._bytes = 0
         self._seen: collections.OrderedDict = collections.OrderedDict()
-        self._lock = threading.Lock()
+        self._lock = lockrank.RankedLock("ed25519.atable")
         self.hits = 0
         self.misses = 0
         self.evictions = 0

@@ -22,11 +22,11 @@ import hmac
 import os
 import secrets
 import struct
-import threading
 from dataclasses import dataclass
 
 import numpy as np
 
+from ..libs import lockrank
 from .hash import sum_sha256
 
 KEY_TYPE = "secp256k1"
@@ -526,10 +526,10 @@ class QTableCache:
     ~215 KB a key) runs once per key set and device, and later commits'
     MSM programs read the resident tables.  Keyed by (key_id, device);
     LRU-bounded by a byte budget (COMETBFT_TPU_Q_CACHE_BYTES, default
-    128 MiB, ~600 keys).  Thread-safe.  The JAX package's lock has the
-    rank name "secp256k1.qtable" and its metrics gauges count hits,
-    misses and bytes; the port has neither a lock-rank checker nor
-    metrics yet, so this is a plain lock and the counts are attributes."""
+    128 MiB, ~600 keys).  Thread-safe: its lock has the rank name
+    "secp256k1.qtable" (libs/lockrank).  The JAX package's metrics
+    gauges count hits, misses and bytes; the port has no metrics yet,
+    so the counts are attributes."""
 
     def __init__(self, max_bytes: int | None = None):
         self._max_bytes = (max_bytes if max_bytes is not None else
@@ -538,7 +538,7 @@ class QTableCache:
                                str(128 << 20))))
         self._entries = collections.OrderedDict()  # key -> (entry, nbytes)
         self._bytes = 0
-        self._lock = threading.Lock()
+        self._lock = lockrank.RankedLock("secp256k1.qtable")
         self.hits = 0
         self.misses = 0
         self.evictions = 0

@@ -65,7 +65,7 @@ def decompress(enc_words: torch.Tensor):
         rc = lib.ed25519_decompress(devmod.ptr(words), w, devmod.ptr(pt),
                                     devmod.ptr(ok), devmod.stream(words))
     devmod.check_launch(rc, "ed25519_decompress")
-    decompress.launches += 1
+    devmod.count_launch(decompress)
     return pt, ok != 0
 
 

@@ -209,7 +209,7 @@ def table17_neg(pt: torch.Tensor) -> torch.Tensor:
         rc = lib.ed25519_table17_neg(devmod.ptr(pt), w, devmod.ptr(tab),
                                      devmod.stream(pt))
     devmod.check_launch(rc, "ed25519_table17_neg")
-    table17_neg.launches += 1
+    devmod.count_launch(table17_neg)
     return tab
 
 
@@ -320,7 +320,7 @@ def msm_window_major(tab, mags, negs, group=None):
             devmod.ptr(tab), devmod.ptr(mags), devmod.ptr(negs), w, nwin,
             rows, k, devmod.ptr(sums), devmod.ptr(out), devmod.stream(tab))
     devmod.check_launch(rc, "ed25519_msm_window_major")
-    msm_window_major.launches += 1
+    devmod.count_launch(msm_window_major)
     return out
 
 
@@ -365,7 +365,7 @@ def msm_window_major_grouped(tab, mags, negs, group: int):
             devmod.ptr(tab), devmod.ptr(mags), devmod.ptr(negs), w, nwin,
             devmod.ptr(sums), devmod.ptr(out), devmod.stream(tab))
     devmod.check_launch(rc, "ed25519_msm_window_major_grouped")
-    msm_window_major_grouped.launches += 1
+    devmod.count_launch(msm_window_major_grouped)
     return out
 
 
@@ -432,7 +432,7 @@ def msm_window_loop(tab, mags, negs, blk=None):
             blk, out_l, nblk * out_l, devmod.ptr(sums), devmod.ptr(out),
             devmod.stream(tab))
     devmod.check_launch(rc, "ed25519_msm_window_loop")
-    msm_window_loop.launches += 1
+    devmod.count_launch(msm_window_loop)
     return out
 
 
@@ -464,7 +464,7 @@ def select_tree(tab, mag, neg, blk=None):
             devmod.ptr(tab), devmod.ptr(mag), devmod.ptr(neg), w, blk, out_l,
             nblk * out_l, devmod.ptr(out), devmod.stream(tab))
     devmod.check_launch(rc, "ed25519_select_tree")
-    select_tree.launches += 1
+    devmod.count_launch(select_tree)
     return out
 
 
@@ -510,7 +510,7 @@ def fold_verify(pa: torch.Tensor, pr: torch.Tensor) -> torch.Tensor:
             devmod.ptr(pa), pa.shape[-1], devmod.ptr(pr), pr.shape[-1],
             devmod.ptr(out), devmod.stream(pa))
     devmod.check_launch(rc, "ed25519_fold_verify")
-    fold_verify.launches += 1
+    devmod.count_launch(fold_verify)
     return out[0] != 0
 
 

@@ -84,7 +84,7 @@ def q_msm_tables(qx: torch.Tensor, qy: torch.Tensor):
                                devmod.ptr(bases), devmod.ptr(qtab),
                                devmod.ptr(corr), devmod.stream(qx))
     devmod.check_launch(rc, "secp_q_tables")
-    q_msm_tables.launches += 1
+    devmod.count_launch(q_msm_tables)
     return qtab, corr
 
 
@@ -132,7 +132,7 @@ def msm_verify(qtab, q_corr, gid, g_rows, g_neg, q_rows, q_neg, r_limbs,
             rn_limbs, rn_valid, s_pt, gtab, gcorr)), nb, nk, devmod.ptr(out),
             devmod.stream(gid))
     devmod.check_launch(rc, "secp_msm_verify")
-    msm_verify.launches += 1
+    devmod.count_launch(msm_verify)
     return out
 
 
@@ -169,7 +169,7 @@ def verify_ladder(qx, qy, u1_nibs, u2_nibs, r_limbs, rn_limbs, rn_valid):
             qx, qy, u1_nibs, u2_nibs, r_limbs, rn_limbs, rn_valid, gtab)),
             nb, devmod.ptr(out), devmod.stream(qx))
     devmod.check_launch(rc, "secp_ladder")
-    verify_ladder.launches += 1
+    devmod.count_launch(verify_ladder)
     return out
 
 

@@ -9,6 +9,7 @@ plain torch version on the host: nothing falls back to the CPU quietly.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import numpy as np
 import torch
@@ -50,6 +51,18 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
 
 def stream(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+_LAUNCH_LOCK = threading.Lock()
+
+
+def count_launch(fn) -> None:
+    """Add one to a wrapper's `launches`, under a lock: two threads may
+    launch the same kernel at once (MixedBatchVerifier runs the ed25519
+    and sr25519 sub-batches on K1-K4 concurrently), and `+= 1` on an
+    attribute is not atomic."""
+    with _LAUNCH_LOCK:
+        fn.launches += 1
 
 
 def check_launch(rc: int, name: str) -> None:

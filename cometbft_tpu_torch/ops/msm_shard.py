@@ -38,6 +38,7 @@ from __future__ import annotations
 import torch
 
 from . import cuda_msm
+from . import device as devmod
 from . import ed25519 as dev
 
 
@@ -64,7 +65,7 @@ def _gather_lanes(parts, device) -> torch.Tensor:
 
 def _count(fn, devices) -> None:
     if all(torch.device(d).type == "cuda" for d in devices):
-        fn.launches += 1
+        devmod.count_launch(fn)
 
 
 def sharded_partials(tab, mags, negs, *, devices, group=None):

@@ -286,7 +286,7 @@ def sha256_blocks(blocks: torch.Tensor, n_blocks: torch.Tensor):
         rc = lib.sha256_blocks(devmod.ptr(blocks), devmod.ptr(n_blocks), n,
                                nblk, devmod.ptr(out), devmod.stream(blocks))
     devmod.check_launch(rc, "sha256_blocks")
-    sha256_blocks.launches += 1
+    devmod.count_launch(sha256_blocks)
     return out
 
 
@@ -317,7 +317,7 @@ def sha512_blocks(blocks_hi: torch.Tensor, blocks_lo: torch.Tensor,
                                devmod.ptr(out_hi), devmod.ptr(out_lo),
                                devmod.stream(blocks_hi))
     devmod.check_launch(rc, "sha512_blocks")
-    sha512_blocks.launches += 1
+    devmod.count_launch(sha512_blocks)
     return out_hi, out_lo
 
 

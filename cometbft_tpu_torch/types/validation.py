@@ -8,6 +8,10 @@ batch routed to the port's BatchVerifier for the set's key type, or to
 MixedBatchVerifier for a mixed-key set, on an explicit device.  Every
 entry point takes `device=` (default "cuda") and resolves it first:
 without a card it raises unless the caller passes device="cpu".
+
+The batch seams consult the signature-verdict cache (crypto/sigcache)
+first, as the JAX package does: only misses reach a verifier, and a
+cached negative raises the same error before any dispatch.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ import os
 from dataclasses import dataclass
 
 from ..crypto import batch as crypto_batch
+from ..crypto import sigcache
 from ..ops import device as devmod
 from .block import BLOCK_ID_FLAG_ABSENT, BLOCK_ID_FLAG_COMMIT
 
@@ -101,6 +106,18 @@ class DeferredSigBatch:
         if not self._entries:
             return
         self._entries, entries = [], self._entries
+        # verdict-cache partition: triples the process already proved
+        # skip the dispatch; a cached negative raises the error the
+        # uncached path would, at once
+        cached, miss_idx = sigcache.partition(
+            [(pub, sign_bytes, sig)
+             for _, _, pub, sign_bytes, sig in entries])
+        for (label, ctx, _, _, sig), v in zip(entries, cached):
+            if v is False:
+                raise self._fail(label, ctx, sig)
+        entries = [entries[i] for i in miss_idx]
+        if not entries:
+            return
         if len(entries) < self.DEVICE_THRESHOLD:
             for label, ctx, pub, sign_bytes, sig in entries:
                 if not crypto_batch.safe_verify(pub, sign_bytes, sig):
@@ -237,17 +254,31 @@ def _verify(chain_id, vals, commit, needed, ignore, count, device,
         return
 
     if use_batch:
+        # verdict-cache partition: only misses reach a verifier; a
+        # cached negative raises at once with the uncached path's
+        # message (on a hot cache every entry is cached, so the first
+        # False in entry order is the index the uncached scan names)
+        cached, miss_idx = sigcache.partition(
+            [(val.pub_key, sign_bytes, sig)
+             for _, val, sign_bytes, sig in entries])
+        for (idx, _, _, sig), v in zip(entries, cached):
+            if v is False:
+                raise ErrInvalidSignature(
+                    f"wrong signature (#{idx}): {sig.hex()}")
+        misses = [entries[i] for i in miss_idx]
+        if not misses:
+            return
         bv = crypto_batch.MixedBatchVerifier(device=device) \
             if not vals.all_keys_have_same_type() \
             else crypto_batch.create_batch_verifier(
-                vals.get_proposer().pub_key.type(), n_hint=len(entries),
+                vals.get_proposer().pub_key.type(), n_hint=len(misses),
                 device=device)
-        for _, val, sign_bytes, sig in entries:
+        for _, val, sign_bytes, sig in misses:
             bv.add(val.pub_key, sign_bytes, sig)
         ok, verdicts = bv.verify()
         if ok:
             return
-        for (idx, _, _, sig), valid in zip(entries, verdicts):
+        for (idx, _, _, sig), valid in zip(misses, verdicts):
             if not valid:
                 raise ErrInvalidSignature(
                     f"wrong signature (#{idx}): {sig.hex()}")

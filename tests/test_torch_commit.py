@@ -4,8 +4,9 @@ DeferredSigBatch, on the same small commits in both packages.  Every
 outcome — pass, or the error class and its message — must be identical.
 The port runs with device="cpu" and lowered device thresholds, so its
 RLC program and its per-signature localization both run (plain
-versions); the JAX package verifies on its host path with the
-signature cache off."""
+versions); the JAX package verifies on its host path.  Both packages run
+with their signature caches off (tests/test_torch_sigcache.py holds the
+port's cache)."""
 
 import subprocess
 import sys
@@ -25,6 +26,7 @@ from cometbft_tpu.types.validator_set import (Validator as JValidator,
                                               ValidatorSet as JValidatorSet)
 from cometbft_tpu_torch.crypto import batch as tbatch
 from cometbft_tpu_torch.crypto import ed25519 as ted
+from cometbft_tpu_torch.crypto import sigcache as tsigcache
 from cometbft_tpu_torch.ops import ed25519 as tdev
 from cometbft_tpu_torch.types import block as tblock
 from cometbft_tpu_torch.types import validation as tval
@@ -38,11 +40,26 @@ HEIGHT = 12
 
 
 @pytest.fixture(autouse=True)
-def _paths(monkeypatch):
-    """JAX side: no verdict cache.  Port side: device thresholds low
-    enough that a <=7-signature commit takes the RLC program; count the
-    RLC and localization dispatches."""
+def _port_sigcache():
+    """The port's signature-verdict cache is process-wide: a triple
+    verified in one test (or another file on the same worker) would be a
+    hit in the next and skip the program that test means to run.  Start
+    and end every test with an empty cache in the default state."""
+    tsigcache.reset()
+    tsigcache.set_enabled(None)
+    yield
+    tsigcache.reset()
+    tsigcache.set_enabled(None)
+
+
+@pytest.fixture(autouse=True)
+def _paths(monkeypatch, _port_sigcache):
+    """Both packages: no verdict cache (each entry point of a case runs
+    its own programs).  Port side: device thresholds low enough that a
+    <=7-signature commit takes the RLC program; count the RLC and
+    localization dispatches."""
     monkeypatch.setattr(sigcache, "_enabled_override", False)
+    monkeypatch.setattr(tsigcache, "_enabled_override", False)
     monkeypatch.setattr(tbatch, "DEVICE_THRESHOLD", 2)
     monkeypatch.setattr(tval.DeferredSigBatch, "DEVICE_THRESHOLD", 2)
     calls = {"rlc": 0, "persig": 0}

@@ -29,11 +29,25 @@ from cometbft_tpu_torch.crypto import batch as tbatch
 from cometbft_tpu_torch.crypto import ed25519 as ted
 from cometbft_tpu_torch.crypto import ed25519_ref as tref
 from cometbft_tpu_torch.crypto import mesh
+from cometbft_tpu_torch.crypto import sigcache as tsigcache
 from cometbft_tpu_torch.ops import ed25519 as tdev
 from cometbft_tpu_torch.ops import sharding
 from cometbft_tpu_torch.types import validation as tval
 
 CPU = torch.device("cpu")
+
+
+@pytest.fixture(autouse=True)
+def _port_sigcache():
+    """The port's signature-verdict cache is process-wide: a triple
+    verified in one test (or another file on the same worker) would be a
+    hit in the next and skip the program that test means to run.  Start
+    and end every test with an empty cache in the default state."""
+    tsigcache.reset()
+    tsigcache.set_enabled(None)
+    yield
+    tsigcache.reset()
+    tsigcache.set_enabled(None)
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -25,6 +25,7 @@ from cometbft_tpu.types.validator_set import (Validator as JValidator,
 from cometbft_tpu_torch.crypto import batch as tbatch
 from cometbft_tpu_torch.crypto import ed25519 as ted
 from cometbft_tpu_torch.crypto import secp256k1 as tsk
+from cometbft_tpu_torch.crypto import sigcache as tsigcache
 from cometbft_tpu_torch.types import block as tblock
 from cometbft_tpu_torch.types import validation as tval
 from cometbft_tpu_torch.types.timestamp import Timestamp as TTimestamp
@@ -60,7 +61,20 @@ def _port_key(pub):
 
 
 @pytest.fixture(autouse=True)
-def _paths(monkeypatch):
+def _port_sigcache():
+    """The port's signature-verdict cache is process-wide: a triple
+    verified in one test (or another file on the same worker) would be a
+    hit in the next and skip the program that test means to run.  Start
+    and end every test with an empty cache in the default state."""
+    tsigcache.reset()
+    tsigcache.set_enabled(None)
+    yield
+    tsigcache.reset()
+    tsigcache.set_enabled(None)
+
+
+@pytest.fixture(autouse=True)
+def _paths(monkeypatch, _port_sigcache):
     """JAX side: host loops, no verdict cache.  Port side: device
     thresholds low enough that each key type's program runs; record the
     programs each port verify ran."""

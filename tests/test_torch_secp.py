@@ -25,6 +25,7 @@ from cometbft_tpu.types import validator_set as jvs
 from cometbft_tpu_torch import convert
 from cometbft_tpu_torch.crypto import batch as tbatch
 from cometbft_tpu_torch.crypto import secp256k1 as tsk
+from cometbft_tpu_torch.crypto import sigcache as tsigcache
 from cometbft_tpu_torch.ops import cuda_secp
 from cometbft_tpu_torch.ops import fe_secp as tfs
 from cometbft_tpu_torch.ops import msm as tmsm
@@ -38,6 +39,19 @@ B = 8
 
 
 # -- fixtures -----------------------------------------------------------------
+
+
+@pytest.fixture(autouse=True)
+def _port_sigcache():
+    """The port's signature-verdict cache is process-wide: a triple
+    verified in one test (or another file on the same worker) would be a
+    hit in the next and skip the program that test means to run.  Start
+    and end every test with an empty cache in the default state."""
+    tsigcache.reset()
+    tsigcache.set_enabled(None)
+    yield
+    tsigcache.reset()
+    tsigcache.set_enabled(None)
 
 _PRIVS = [tsk.PrivKey.generate(bytes([70 + i]) * 32) for i in range(4)]
 
