@@ -114,7 +114,25 @@ result):
              the window re-verified with every triple a hit (signatures
              per second, as bench.py's bench_commit_reverify); the cache
              is off again after it, as every other phase runs;
- 10. engines the same entry points under each MSM engine configuration
+ 10. pipeline crypto/dispatch.VerifyPipeline, its kernels launched from its
+             dispatch threads: eight blocksync windows serial
+             (DeferredSigBatch.verify) and pipelined (verify_async,
+             depth 2, the machine's host pool), sigs/s both ways, each
+             window's latency (the latency ledger), the dispatch
+             thread's busy share and idle causes (devprof), exactly eight
+             serial windows' K1-K4 and no K14; the eight with a bad
+             fifth (its error and one K1 + K14 over the live lanes); two
+             windows on the device-hash route (K9); the three-type commit
+             with its secp256k1 sub-batch over the crossover as one mixed
+             window, on the MSM program (K11, K12) and on the ladder
+             (K13); a consensus window dispatched ahead of
+             six queued blocksync windows; an injected fault (drain,
+             SUSPECT), a hang past a 1 s deadline (host resolve,
+             QUARANTINED, the known-answer probe on the card, HEALTHY);
+             a cached window (path "cache", no launch); two logical
+             shards (in-order publication, exact launches per window).
+             Outside the fault steps every window resolves on the device;
+ 11. engines the same entry points under each MSM engine configuration
              (the JAX package's flags, set on the port's modules):
              window_loop (K6), window_loop_blk2048 (K6 under
              COMETBFT_TPU_PALLAS_BLK=2048: 1, 8 and 16 rows per output
@@ -127,7 +145,7 @@ result):
              batch, each verdict the default engine's; each must launch
              exactly its configuration's kernels (and K1 + K14 for each
              localization);
- 11. kernels each kernel vs its plain version on the card, at the shapes
+ 12. kernels each kernel vs its plain version on the card, at the shapes
              phases 2-4 gave it, and K1-K4 and K14 also at the shapes
              of phase 8's sr25519 packs that those lack (the mixed
              commit's and the mixed batch's: N = 64 and 1,024, K14 at 50
@@ -173,7 +191,7 @@ result):
              key; and its first 4,096 lanes), verdict for verdict and
              accumulator for accumulator (frozen, coordinate for
              coordinate), and against ed25519_ref;
- 12. timing  each kernel's median time over runs of 10 launches back to
+ 13. timing  each kernel's median time over runs of 10 launches back to
              back and each plain version's time for one call (CUDA
              events; the kernels phase's comparison warmed it), with
              the bound the card could reach for the same
@@ -189,11 +207,13 @@ The launch counters are reset before phase 2 and read after phase 4
 (the default engine: every one of K1-K4 and K14 must launch there, none
 of K5-K8), reset before and read after phase 5's path (its comparisons
 with the plain version excluded), and reset before and read after each
-configuration of phase 10, reset before and read after phase 6's path
+configuration of phase 11, reset before and read after phase 6's path
 (its host-hash comparisons excluded), reset before and read after
-phase 7's path (its host-wait and order checks excluded), and reset
-before and read after phases 8 and 9 (their oracle checks excluded).
-The signature-verdict cache is off in every phase but 9.
+phase 7's path (its host-wait and order checks excluded), reset before
+and read after phases 8 and 9 (their oracle checks excluded), and reset
+before and read after phase 10 (its serial references and oracles
+excluded).  The signature-verdict cache is off in every phase but 9 and
+phase 10's cache step.
 Keys and messages come from a fixed seed; the RLC weights are drawn from
 `secrets`, as they are in use.
 """
@@ -277,6 +297,9 @@ SR_COMMIT_HEIGHT = 9
 SR_WINDOW_BASE = 3000          # the sr25519 window's first height
 SR_MIXED_HEIGHT = 11           # BASELINE's mixed commit
 SR_MIXED_KEYS = 50             # keys of each type in the mixed commit
+# secp256k1 signatures added to the pipeline's mixed window, so that its
+# secp256k1 sub-batch (SR_MIXED_KEYS + this) is over the device crossover
+PIPE_SECP_EXTRA = 64
 MIXED_SR = 1000                # sr25519 signatures beside bench.py's mixed
 # one RLC program on the default engine: the whole program (or the
 # A-table build and the cached-A program: the same launches), and the
@@ -290,7 +313,7 @@ MESH_SHARDS = (1, 2, 4)
 NVLINK_BYTES_PER_S = 450e9     # one direction, H100 SXM data sheet
 
 # the engine flags (ops/ed25519 USE_PALLAS_*, ops/cuda_msm WIN_GROUP, BLK) at
-# the JAX package's defaults, and each configuration of phase 10: its
+# the JAX package's defaults, and each configuration of phase 11: its
 # flags, the kernels it must launch (and no other), whether it also runs
 # the 8,192 batch
 DEFAULT_ENGINE = {"USE_PALLAS_MSM_MAJOR": True, "USE_PALLAS_MSM_LOOP": True,
@@ -452,7 +475,8 @@ def main() -> int:
     state = {}
     phases = [phase_build, phase_fixtures, phase_commit, phase_window,
               phase_batch, phase_mesh, phase_hash, phase_secp, phase_sr25519,
-              phase_sigcache, phase_engines, phase_kernels, phase_timing]
+              phase_sigcache, phase_pipeline, phase_engines, phase_kernels,
+              phase_timing]
     ctx = mp.get_context("spawn")
     with ctx.Pool(os.cpu_count() or 1) as pool:
         state["pool"] = pool
@@ -2622,7 +2646,541 @@ def phase_sigcache(state, torch):
 
 
 
-# -- phase 10: the engine configurations -------------------------------------
+# -- phase 10: the overlapped verify pipeline ---------------------------------
+
+PIPE_WINDOWS = 8               # blocksync windows in a row, serial and piped
+PIPE_BAD = 4                   # the fifth window carries the bad signature
+PIPE_QOS_BULK = 6              # blocksync windows queued ahead of consensus
+PIPE_DEADLINE_S = 1.0          # the hang step's watchdog deadline
+PIPE_MESH = 4                  # windows over the two logical shards
+
+
+def _collect(state, val, commits, vals=None):
+    """`commits` collected into a DeferredSigBatch, as _run_window does,
+    without verifying it."""
+    batch = val.DeferredSigBatch()
+    for h, (bid, commit) in commits:
+        val.verify_commit_light(CHAIN_ID, state["vals"] if vals is None
+                                else vals, bid, h, commit, defer_to=batch,
+                                device=DEVICE)
+    return batch
+
+
+def _uncounted(fn):
+    """Run a comparison (a serial reference, an oracle) with its launches
+    taken back out of the counts.  No pipeline may be running."""
+    saved = _counts()
+    try:
+        return fn()
+    finally:
+        for name, k in _kernels().items():
+            k.launches = saved[name]
+
+
+def _clean_pipe(pipe, label):
+    """Outside the steps that inject a fault, no window of `pipe` may
+    leave the device: no fault, host window, staging fallback or drain."""
+    check(pipe.faults == pipe.host_windows == pipe.staging_fallbacks ==
+          pipe.drained_windows == 0,
+          f"{label}: {pipe.faults} faults, {pipe.host_windows} host windows, "
+          f"{pipe.staging_fallbacks} staging fallbacks, "
+          f"{pipe.drained_windows} drained")
+
+
+def _rlc_want(hits, calls):
+    """The launches of `calls` RLC programs of which `hits` ran on a
+    cached A table (a table built on the spot launches as the whole
+    program does)."""
+    return _merge(*([RLC_HIT] * hits + [RLC_WHOLE] * (calls - hits)))
+
+
+def _want_launches(got, want, label):
+    want = {k: v for k, v in want.items() if v}
+    check(got == want, f"{label}: launched {got}, not {want}")
+
+
+def _real_dispatch(torch):
+    """The pipeline's own device dispatch of an ed25519 window (or a
+    probe window), for dispatch_fn wrappers that inject faults around
+    it."""
+    from cometbft_tpu_torch.crypto import batch as cb
+
+    dev = torch.device(DEVICE)
+    return lambda win: cb._device_verify(win.pks, win.parsed, dev,
+                                         packed=win.packed)
+
+
+def _pipe_items(state, heights):
+    """The (pubkey bytes, msg, sig) triples DeferredSigBatch collects from
+    the commits at `heights`, as one list, and their columns."""
+    cols = _window_items(state, [(h, state["commits"][h]) for h in heights])
+    return list(zip(*cols)), cols
+
+
+def phase_pipeline(state, torch):
+    """crypto/dispatch.VerifyPipeline on the card, its kernels launched
+    from its dispatch threads (the verdict cache off but in step 7):
+    1. eight blocksync windows (the window phase's 48 commits) through
+       DeferredSigBatch.verify one after another, then through
+       verify_async on VerifyPipeline(depth=2) with the machine's host
+       pool: sigs/s both ways, each window's latency from the latency
+       ledger, devprof's busy share and idle causes; exactly eight times
+       a serial window's K1-K4, no K14, every path "device";
+    2. the eight again with the fifth carrying the window phase's bad
+       signature: its wait() raises as the serial call does, naming that
+       height, with one more K1 and one K14 over the live lanes;
+    3. two windows (clean, bad) under COMETBFT_TPU_DEVICE_HASH=1: the
+       launches of the same two calls of crypto/batch._device_verify_hash
+       (K9 among them) and the host-hash route's verdicts;
+    4. the sr25519 phase's three-type commit (50 ed25519, 50 secp256k1
+       and 50 sr25519 keys) and 64 more secp256k1 signatures of the secp
+       phase's mixed batch (so that the secp256k1 sub-batch, 114 keys, is
+       over the device crossover of 96) as one window, through
+       MixedBatchVerifier, one bad sr25519 and one bad secp256k1
+       signature: the host oracle's verdicts, twice, on the MSM program
+       (K11, K12) and on the ladder (K13), every launch inside the
+       dispatch thread's call;
+    5. six blocksync windows queued, then one consensus window: it
+       dispatches ahead of queued blocksync windows (EV_SCHED_PREEMPT,
+       the scheduler's snapshot, the ledger's dispatch stamps), and each
+       lane resolves in its submission order;
+    6. dispatch_fn wrappers around the real dispatch: one raises once
+       (its window and those behind it drain with the host's verdicts,
+       the device goes SUSPECT and stays in rotation); one sleeps past a
+       1 s deadline (the window resolves on the host, the device is
+       QUARANTINED) until the probe, run on the card (K1-K4, then K1 +
+       K14 for its corrupted lane), returns it to HEALTHY;
+    7. a window submitted twice with the verdict cache on: the second
+       resolves at submit, path "cache", with no launch;
+    8. devices=["cuda:0", "cuda:0"] (logical shards) at depth 4: windows
+       publish in submission order, each window's launches exact, each
+       dispatch under its device's context.
+    The counts are set to 0 before step 1 and read after step 8;
+    comparisons run outside the count."""
+    import threading
+
+    from cometbft_tpu_torch.crypto import batch as cb
+    from cometbft_tpu_torch.crypto import devhealth
+    from cometbft_tpu_torch.crypto import dispatch as vd
+    from cometbft_tpu_torch.crypto import ed25519 as ed
+    from cometbft_tpu_torch.crypto import sigcache
+    from cometbft_tpu_torch.libs import devprof, flightrec, latledger
+    from cometbft_tpu_torch.types import validation as val
+
+    commits = [(h, state["commits"][h]) for h in state["heights"]]
+    bad, bad_h = state["window_bad"]
+    cache = ed._A_TABLE_CACHE
+    out = {}
+    # the window's A table on the card, so that every window below runs
+    # the cached-A program on a table hit
+    for _ in range(2):
+        _collect(state, val, commits).verify(device=DEVICE)
+    _zero_counts()                      # the pipeline path starts here
+
+    # 1. serial against pipelined
+    sigs = WINDOW * COMMIT_SIGS * PIPE_WINDOWS
+    before, h0 = _counts(), cache.hits
+    per = []
+    t0 = time.perf_counter()
+    for _ in range(PIPE_WINDOWS):
+        b0 = _counts()
+        _collect(state, val, commits).verify(device=DEVICE)
+        per.append(_launched(b0, _counts()))
+    serial_s = time.perf_counter() - t0
+    check(cache.hits - h0 == PIPE_WINDOWS and all(p == per[0] for p in per),
+          f"serial windows launched {per}")
+    _want_launches(_launched(before, _counts()), _rlc_want(PIPE_WINDOWS,
+                                                  PIPE_WINDOWS), "serial")
+    prof, ledger = devprof.DevprofRecorder(), latledger.LatLedgerRecorder()
+    devprof.set_recorder(prof)
+    latledger.set_recorder(ledger)
+    before = _counts()
+    try:
+        with vd.VerifyPipeline(depth=2, device=DEVICE) as pipe:
+            t0 = time.perf_counter()
+            waits = [_collect(state, val, commits).verify_async(
+                pipe, subsystem="blocksync") for _ in range(PIPE_WINDOWS)]
+            for w in waits:
+                w.wait(timeout=600)
+            piped_s = time.perf_counter() - t0
+            workers = pipe.host_workers
+        _clean_pipe(pipe, "pipelined windows")
+    finally:
+        devprof.set_recorder(None)
+        latledger.set_recorder(None)
+    paths = [w.handle.path for w in waits]
+    check(paths == ["device"] * PIPE_WINDOWS, f"paths {paths}")
+    _want_launches(_launched(before, _counts()), _merge(*[per[0]] * PIPE_WINDOWS),
+           "pipelined windows")
+    rows = ledger.rows()
+    check(len(rows) == PIPE_WINDOWS and all(r["path"] == "device"
+                                            for r in rows),
+          f"latency ledger rows {[(r['path'], r['n']) for r in rows]}")
+    occ = devprof.occupancy_summary(prof.snapshot())
+    out["windows"] = {
+        "windows": PIPE_WINDOWS, "signatures": sigs, "host_workers": workers,
+        "serial_seconds": serial_s, "serial_sigs_per_s": sigs / serial_s,
+        "pipelined_seconds": piped_s, "pipelined_sigs_per_s": sigs / piped_s,
+        "window_latency_ms": [r["wall"] * 1e3 for r in rows],
+        "window_segments_ms": [{k: v * 1e3 for k, v in r["segs"].items()}
+                               for r in rows],
+        "busy_share": occ["device_occupancy_fraction"],
+        "staging_share": occ["host_bound_fraction"],
+        "idle_seconds": occ["idle_cause_seconds"],
+        "busy_seconds": occ["busy_seconds"],
+        "accounted_seconds": occ["wall_seconds"],
+        "launches_per_window": per[0]}
+
+    # 2. the reject, fifth of the eight
+    before = _counts()
+    with _persig(torch) as persig, \
+            vd.VerifyPipeline(depth=2, device=DEVICE) as pipe:
+        waits = [_collect(state, val, bad if i == PIPE_BAD else commits)
+                 .verify_async(pipe, subsystem="blocksync")
+                 for i in range(PIPE_WINDOWS)]
+        raised = []
+        for i, w in enumerate(waits):
+            try:
+                w.wait(timeout=600)
+            except val.ErrInvalidSignature as e:
+                raised.append((i, getattr(e, "failed_ctx", None), str(e)))
+    _clean_pipe(pipe, "reject windows")
+    check([(i, c) for i, c, _ in raised] == [(PIPE_BAD, bad_h)],
+          f"pipelined reject raised {raised}")
+    _want_launches(_launched(before, _counts()),
+           _merge(*[per[0]] * PIPE_WINDOWS, PERSIG_LAUNCHES),
+           "pipelined reject")
+    _check_persig(persig, "pipelined reject", WINDOW * COMMIT_SIGS)
+    paths = [w.handle.path for w in waits]
+    check(paths == ["device"] * PIPE_WINDOWS, f"reject paths {paths}")
+    _uncounted(lambda: _expect_raise(
+        lambda: _run_window(state, val, bad), "serial reject", raised[0][2],
+        bad_h))
+    out["reject"] = {"window": PIPE_BAD, "failed_ctx": bad_h,
+                     "localization_width": persig.widths}
+
+    # 3. the device-hash route
+    cases = [_window_items(state, c) for c in (commits, bad)]
+    prev = os.environ.get("COMETBFT_TPU_DEVICE_HASH")
+    os.environ["COMETBFT_TPU_DEVICE_HASH"] = "1"
+    before = _counts()
+    try:
+        with vd.VerifyPipeline(depth=2, device=DEVICE) as pipe:
+            hs = [pipe.submit(list(zip(*c)), subsystem="blocksync",
+                              device_threshold=val.DeferredSigBatch
+                              .DEVICE_THRESHOLD) for c in cases]
+            got = [h.result(timeout=600) for h in hs]
+        _clean_pipe(pipe, "device-hash windows")
+    finally:
+        if prev is None:
+            os.environ.pop("COMETBFT_TPU_DEVICE_HASH")
+        else:
+            os.environ["COMETBFT_TPU_DEVICE_HASH"] = prev
+    launched = _launched(before, _counts())
+    check([h.path for h in hs] == ["device"] * 2,
+          f"device-hash paths {[h.path for h in hs]}")
+
+    def hash_reference():
+        dev = torch.device(DEVICE)
+        b0 = _counts()
+        hashed = [cb._device_verify_hash(p, m, ed.parse_batch(p, s),
+                                         device=dev) for p, m, s in cases]
+        ref = _launched(b0, _counts())
+        host = [cb._device_verify(p, ed.parse_and_hash(p, m, s), dev)
+                for p, m, s in cases]
+        return hashed, ref, host
+    hashed, ref, host = _uncounted(hash_reference)
+    check(got == hashed == host and not got[1][0] and
+          got[1][1].count(False) == 1, "device-hash verdicts differ from "
+          "the host-hash route's")
+    _want_launches(launched, ref, "device-hash windows")
+    check(launched.get("sha512_blocks") == 3, f"device-hash K9 {launched}")
+    out["device_hash"] = {"launches": launched}
+
+    # 4. the three-type commit as one window, its secp256k1 sub-batch
+    #    brought over the device crossover (SECP_DEVICE_THRESHOLD) with
+    #    the secp phase's mixed keys, so that K11-K13 run on the card:
+    #    once on the MSM program (K11, K12), once on the ladder (K13)
+    from cometbft_tpu_torch.crypto import secp256k1 as sk
+
+    s = state["sr25519"]
+    mbid, mcommit = s["commits"][SR_MIXED_HEIGHT]
+    mvals = s["mvals"]
+    triples = [(v.pub_key, sb, cs.signature) for v, sb, cs in zip(
+        mvals.validators, mcommit.vote_sign_bytes_all(CHAIN_ID),
+        mcommit.signatures)]
+    triples += list(state["secp"]["mixed"][MIXED_ED:MIXED_ED +
+                                            PIPE_SECP_EXTRA])
+    kinds = [pk.type() for pk, _, _ in triples]
+    n_secp = kinds.count("secp256k1")
+    check(n_secp >= cb._device_threshold("secp256k1"),
+          f"mixed window: {n_secp} secp256k1 keys, under the crossover")
+    bad_m = sorted([kinds.index("sr25519"),
+                    len(triples) - PIPE_SECP_EXTRA // 2])
+    for i in bad_m:
+        pk, m, sg = triples[i]
+        triples[i] = (pk, m + b"!", sg)
+    want = _uncounted(lambda: _typed_oracle(state, triples))
+    check([i for i, v in enumerate(want) if not v] == bad_m,
+          "mixed window: the oracle's rejects")
+    out["mixed"] = {"signatures": len(triples), "bad_index": bad_m,
+                    "secp256k1": n_secp, "key_types": sorted(set(kinds))}
+    for program, env in (("msm", "1"), ("ladder", "0")):
+        old = os.environ.get("COMETBFT_TPU_SECP_MSM")
+        os.environ["COMETBFT_TPU_SECP_MSM"] = env
+        before, h0 = _counts(), cache.hits
+        m0 = sk.q_table_cache().misses
+        inside = []
+        try:
+            with vd.VerifyPipeline(depth=2, device=DEVICE) as pipe:
+                real = pipe._device_dispatch
+
+                def traced(win, device=None, real=real):
+                    # the launches made inside the dispatch thread's call
+                    # (MixedBatchVerifier's one thread a key type included)
+                    b = _counts()
+                    r = real(win, device=device)
+                    inside.append((threading.current_thread().name,
+                                   _launched(b, _counts())))
+                    return r
+                pipe._device_dispatch = traced
+                t0 = time.perf_counter()
+                h = pipe.submit(triples, subsystem="blocksync")
+                ok, verdicts = h.result(timeout=600)
+                secs = time.perf_counter() - t0
+        finally:
+            if old is None:
+                os.environ.pop("COMETBFT_TPU_SECP_MSM", None)
+            else:
+                os.environ["COMETBFT_TPU_SECP_MSM"] = old
+        _clean_pipe(pipe, f"mixed window ({program})")
+        check(h.path == "device" and verdicts == want and not ok,
+              f"mixed window ({program}): path {h.path}, verdicts differ "
+              f"from the oracle at "
+              f"{[i for i, (a, b) in enumerate(zip(verdicts, want)) if a != b]}")
+        misses = sk.q_table_cache().misses - m0
+        secp = ({"secp_msm_verify": 1, "secp_q_tables": misses}
+                if program == "msm" else {"secp_ladder": 1})
+        got = _launched(before, _counts())
+        _want_launches(got, _merge(_rlc_want(cache.hits - h0, 2),
+                                   PERSIG_LAUNCHES, secp),
+                       f"mixed window ({program})")
+        check(inside == [(f"{pipe._name}-device", got)],
+              f"mixed window ({program}): launches outside the dispatch "
+              f"thread's call: {inside} against {got}")
+        out["mixed"][program] = {"launches": got, "table_misses": misses,
+                                 "seconds": secs}
+
+    # 5. QoS: a consensus window behind six queued blocksync windows
+    rec = flightrec.FlightRecorder()
+    flightrec.set_recorder(rec)
+    ledger = latledger.LatLedgerRecorder()
+    latledger.set_recorder(ledger)
+    small, _ = _pipe_items(state, [5])
+    try:
+        batches = [_collect(state, val, commits)
+                   for _ in range(PIPE_QOS_BULK)]
+        with vd.VerifyPipeline(depth=PIPE_QOS_BULK + 2,
+                               device=DEVICE) as pipe:
+            waits = [b.verify_async(pipe, subsystem="blocksync")
+                     for b in batches]
+            urgent = pipe.submit(small, subsystem="consensus")
+            urgent.result(timeout=600)
+            for w in waits:
+                w.wait(timeout=600)
+            snap = pipe.scheduler_snapshot()
+        _clean_pipe(pipe, "QoS windows")
+    finally:
+        flightrec.set_recorder(None)
+        latledger.set_recorder(None)
+    handles = [w.handle for w in waits]
+    check(all(x.path == "device" for x in handles + [urgent]),
+          "QoS paths " + str([x.path for x in handles + [urgent]]))
+    done_at = [x.resolved_at for x in handles]
+    check(done_at == sorted(done_at), "blocksync resolved out of order")
+    pre = [e for e in rec.events() if e["kind"] == flightrec.EV_SCHED_PREEMPT]
+    dispatched = sorted((x.lat[0].stamps["dispatch"], x.subsystem, i)
+                        for i, x in enumerate(handles + [urgent]))
+    order = [sub if sub == "consensus" else i for _, sub, i in dispatched]
+    overtook = PIPE_QOS_BULK - order.index("consensus")
+    check(any(e["lane"] == "consensus" and e["overtook"] >= 1 for e in pre)
+          and snap["consensus"]["preemptions"] == 1 and overtook >= 1,
+          f"the consensus window overtook nothing: order {order}, {pre}")
+    out["qos"] = {"dispatch_order": order, "overtook": overtook,
+                  "preempt_events": pre, "snapshot": snap}
+
+    # 6. faults and health, with windows of one commit (host verdicts)
+    real = _real_dispatch(torch)
+    items = [_pipe_items(state, [h])[0] for h in state["heights"][:3]]
+    j = len(items[1]) // 2
+    items[1][j] = (items[1][j][0], items[1][j][1] + b"!", items[1][j][2])
+    want = _uncounted(lambda: [_oracle(state, tuple(zip(*w))) for w in items])
+    armed = [True]
+
+    def raise_once(win):
+        if armed[0]:
+            armed[0] = False
+            raise RuntimeError("injected device fault")
+        return real(win)
+
+    health = devhealth.HealthRegistry()
+    with vd.VerifyPipeline(depth=3, device=DEVICE, health=health,
+                           dispatch_fn=raise_once) as pipe:
+        hs = [pipe.submit(w, subsystem="blocksync") for w in items]
+        got = [x.result(timeout=600)[1] for x in hs]
+        state_after = health.state("0")
+        again = pipe.submit(items[0], subsystem="blocksync")
+        again.result(timeout=600)
+        fault = {"paths": [x.path for x in hs], "faults": pipe.faults,
+                 "drained": pipe.drained_windows, "state": state_after,
+                 "again": again.path}
+    check(got == want and fault["paths"][0] == "drain" and
+          fault["faults"] == 1 and fault["drained"] ==
+          fault["paths"].count("drain") and state_after == "suspect" and
+          health.usable("0") and again.path == "device",
+          f"fault step: {fault}")
+
+    release = threading.Event()
+    hung = [False]
+    calls = []
+
+    def hang_once(win):
+        if not hung[0]:
+            hung[0] = True
+            release.wait(timeout=4 * PIPE_DEADLINE_S)
+            raise RuntimeError("released after the watchdog")
+        b0, c0 = _counts(), cache.hits
+        r = real(win)
+        calls.append((win.handle.subsystem, _launched(b0, _counts()),
+                      cache.hits - c0, r[1]))
+        return r
+
+    rec = flightrec.FlightRecorder()
+    flightrec.set_recorder(rec)
+    health = devhealth.HealthRegistry(probe_backoff_s=0.5)
+    try:
+        with vd.VerifyPipeline(depth=2, device=DEVICE, health=health,
+                               dispatch_fn=hang_once,
+                               dispatch_deadline_s=PIPE_DEADLINE_S) as pipe:
+            t0 = time.perf_counter()
+            hh = pipe.submit(items[1], subsystem="blocksync")
+            got = hh.result(timeout=600)[1]
+            hang_s = time.perf_counter() - t0
+            release.set()
+            deadline = time.monotonic() + 60
+            while not health.usable("0") and time.monotonic() < deadline:
+                time.sleep(0.01)
+            recovered = health.state("0")
+            after = pipe.submit(items[2], subsystem="blocksync")
+            after.result(timeout=600)
+            hang = {"path": hh.path, "resolved_s": hang_s,
+                    "faults": pipe.faults, "drained": pipe.drained_windows,
+                    "after": after.path}
+    finally:
+        release.set()
+        flightrec.set_recorder(None)
+    events = [(e["kind"], e.get("reason") or e.get("result"))
+              for e in rec.events() if e["kind"] in (
+                  flightrec.EV_WATCHDOG_TIMEOUT,
+                  flightrec.EV_DEVICE_QUARANTINE, flightrec.EV_DEVICE_PROBE)]
+    check(got == want[1] and hh.path == "drain" and
+          events == [(flightrec.EV_DEVICE_QUARANTINE, "hang"),
+                     (flightrec.EV_WATCHDOG_TIMEOUT, None),
+                     (flightrec.EV_DEVICE_PROBE, "ok")] and
+          recovered == "healthy" and after.path == "device" and
+          health.quarantines("0") == 1 and
+          len(health.recovery_seconds("0")) == 1,
+          f"hang step: {hang}, state {recovered}, events {events}")
+    probe = [c for c in calls if c[0] == "probe"]
+    check(len(probe) == 1 and probe[0][3] == devhealth.probe_expected(),
+          f"probe calls {probe}")
+    _want_launches(probe[0][1], _merge(_rlc_want(probe[0][2], 1), PERSIG_LAUNCHES),
+           "probe")
+    hang.update(recovery_seconds=health.recovery_seconds("0")[0],
+                events=events, probe_launches=probe[0][1])
+    out["faults"] = {"raise_once": fault, "hang": hang}
+
+    # 7. the verdict cache
+    sigcache.set_enabled(True)
+    sigcache.reset()
+    try:
+        before, h0 = _counts(), cache.hits
+        with vd.VerifyPipeline(depth=2, device=DEVICE) as pipe:
+            first = _collect(state, val, commits).verify_async(
+                pipe, subsystem="blocksync")
+            first.wait(timeout=600)
+            mid = _counts()
+            again = _collect(state, val, commits).verify_async(
+                pipe, subsystem="blocksync")
+            at_submit = again.done()
+            again.wait(timeout=600)
+        _clean_pipe(pipe, "cached windows")
+    finally:
+        sigcache.set_enabled(False)
+        sigcache.reset()
+    check(first.handle.path == "device" and again.handle.path == "cache"
+          and at_submit and _launched(mid, _counts()) == {},
+          f"cache step: paths {first.handle.path} / {again.handle.path}, "
+          f"resolved at submit {at_submit}")
+    _want_launches(_launched(before, mid), _rlc_want(cache.hits - h0, 1),
+           "cached window, first")
+
+    # 8. the mesh rotation on logical shards of the card
+    devices = [f"cuda:{i % torch.cuda.device_count()}" if DEVICE == "cuda"
+               else "cpu" for i in range(2)]
+    lock = threading.Lock()
+    seen = {}
+
+    def placed(win):
+        dev = torch.device(devices[win.device_index])
+        with lock:
+            b0, c0 = _counts(), cache.hits
+            current = torch.cuda.current_device() if dev.type == "cuda" \
+                else None
+            r = cb._device_verify(win.pks, win.parsed, dev,
+                                  packed=win.packed)
+            seen[win.handle.ctx] = (win.device_index, current,
+                                    threading.current_thread().name,
+                                    _launched(b0, _counts()),
+                                    cache.hits - c0)
+        return r
+
+    order = []
+    with vd.VerifyPipeline(depth=PIPE_MESH, device=DEVICE, devices=devices,
+                           dispatch_fn=placed) as pipe:
+        hs = []
+        for i in range(PIPE_MESH):
+            x = pipe.submit(_pipe_items(state, [state["heights"][i]])[0],
+                            subsystem="blocksync", ctx=i)
+            x.add_done_callback(lambda y: order.append(y.ctx))
+            hs.append(x)
+        for x in hs:
+            x.result(timeout=600)
+    _clean_pipe(pipe, "mesh windows")
+    check(order == list(range(PIPE_MESH)) and
+          all(x.path == "device" for x in hs), f"mesh published {order}")
+    for i in range(PIPE_MESH):
+        idx, current, thread, got, hits = seen[i]
+        check(idx == i % 2 and thread.endswith(f"-device-{idx}") and
+              current in (None, torch.device(devices[idx]).index),
+              f"mesh window {i} on slot {idx}, thread {thread}, "
+              f"current device {current}")
+        _want_launches(got, _rlc_want(hits, 1), f"mesh window {i}")
+    out["mesh"] = {"devices": devices, "windows": {
+        i: {"slot": v[0], "thread": v[2], "launches": v[3]}
+        for i, v in seen.items()}}
+
+    state["pipeline_launches"] = _counts()
+    launched = {k for k, v in state["pipeline_launches"].items() if v}
+    check(launched == DEFAULT_KERNELS | {"sha512_blocks", "secp_q_tables",
+                                         "secp_msm_verify", "secp_ladder"},
+          f"the pipeline path launched {sorted(launched)}")
+    _zero_counts()
+    out["launches"] = state["pipeline_launches"]
+    return out
+
+
+# -- phase 11: the engine configurations -------------------------------------
 
 def phase_engines(state, torch):
     """Each configuration drives the commit, the window and (where
@@ -2672,7 +3230,7 @@ def phase_engines(state, torch):
     return {"configurations": rows}
 
 
-# -- phase 11: kernel vs plain -----------------------------------------------
+# -- phase 12: kernel vs plain -----------------------------------------------
 
 def _hostile_words(state, torch):
     """K1 input at W = 8192: the phase-4 public keys (two of them
@@ -3686,7 +4244,7 @@ def _raw_secp(torch, name, args, step=None):
     return launch
 
 
-# -- phase 12: timing -------------------------------------------------------
+# -- phase 13: timing -------------------------------------------------------
 
 def _time(torch, fn, args, reps, inner=1, warm=True):
     """Median over reps of the CUDA-event time of `inner` calls made back
@@ -3974,6 +4532,7 @@ def phase_timing(state, torch):
                    "secp": state["secp_launches"][name],
                    "sr25519": state["sr25519_launches"][name],
                    "sigcache": state["sigcache_launches"][name],
+                   "pipeline": state["pipeline_launches"][name],
                    **{cfg: c[name]
                       for cfg, c in state["engine_launches"].items()}}
         if name in DEFAULT_KERNELS:
@@ -3985,7 +4544,7 @@ def phase_timing(state, torch):
         else:
             launches = sum(v for k, v in by_path.items()
                            if k not in ("main", "mesh", "hash", "secp",
-                                        "sr25519", "sigcache"))
+                                        "sr25519", "sigcache", "pipeline"))
         source, replaces = KERNELS[name]
         rows.append({"name": name, "route": "cuda", "source": CSRC + source,
                      "replaces": replaces, "launches": launches,

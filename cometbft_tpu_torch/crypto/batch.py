@@ -26,10 +26,9 @@ verification, by key type (the counterpart of `cometbft_tpu.crypto.batch`).
   verdicts in insertion order; a key type with no batch verifier is
   verified singly.
 - _device_verify_hash is the device-hash route: hashing, aggregation
-  and recode run on the device as well.  In the JAX package its
-  pipeline takes this route under COMETBFT_TPU_DEVICE_HASH=1; the
-  pipeline is not ported, so no variable selects it here and a caller
-  calls the function itself.
+  and recode run on the device as well.  The verify pipeline
+  (crypto/dispatch.py) takes it under COMETBFT_TPU_DEVICE_HASH=1, as in
+  the JAX package; elsewhere a caller calls the function itself.
 
 create_batch_verifier resolves its device first: without a card it
 raises unless the caller asks for device="cpu".
@@ -131,10 +130,16 @@ def _placed(device) -> bool:
     return device.type != "cuda" or device.index is not None
 
 
-def _device_verify(pubkeys: list[bytes], parsed,
-                   device) -> tuple[bool, list[bool]]:
+_NO_PACK = object()
+
+
+def _device_verify(pubkeys: list[bytes], parsed, device,
+                   packed=_NO_PACK) -> tuple[bool, list[bool]]:
     """RLC fast path first (one verdict for the batch), the
     per-signature program for verdict localization on failure.
+    `packed` takes a pack_rlc result made ahead of time (the verify
+    pipeline packs window N+1 while window N is on the device; None is
+    a structural reject, localized at once); by default it packs here.
 
     A placed dispatch runs both on `device`.  An un-placed one splits a
     large batch over the mesh first (crypto/mesh.maybe_split_verify:
@@ -149,14 +154,17 @@ def _device_verify(pubkeys: list[bytes], parsed,
     n = len(pubkeys)
     placed = _placed(device)
     if n >= 2:
-        rlc_ok = None if placed else mesh.maybe_split_verify(pubkeys, parsed)
+        rlc_ok = None if placed or packed is not _NO_PACK \
+            else mesh.maybe_split_verify(pubkeys, parsed)
         if rlc_ok is None:
-            packed = ed.pack_rlc(pubkeys, [b""] * n, [b""] * n,
-                                 parsed=parsed)
+            if packed is _NO_PACK:
+                packed = ed.pack_rlc(pubkeys, [b""] * n, [b""] * n,
+                                     parsed=parsed)
             rlc_ok = packed is not None and ed.rlc_verify(packed,
                                                           device=device)
         if rlc_ok:
             return True, [True] * n
+        _record_rlc_fallback(n)
     devices = [device] if placed else mesh.mesh_devices()
     width = sharding.localization_width(
         n, None if devices is None else len(devices))
@@ -167,7 +175,17 @@ def _device_verify(pubkeys: list[bytes], parsed,
     return all(out) and bool(out), out
 
 
-_NO_PACK = object()
+def _record_rlc_fallback(n: int) -> None:
+    """An RLC batch check failed and the per-signature program takes
+    over: count it and leave a flight-recorder event, as the JAX
+    package does."""
+    from ..libs import flightrec
+    from ..libs import metrics as libmetrics
+
+    dm = libmetrics.device_metrics()
+    if dm is not None:
+        dm.rlc_fallbacks.inc()
+    flightrec.record(flightrec.EV_RLC_FALLBACK, batch=n)
 
 
 def _device_verify_hash(pubkeys: list[bytes], msgs: list[bytes], parsed,
@@ -205,6 +223,7 @@ def _device_verify_hash(pubkeys: list[bytes], msgs: list[bytes], parsed,
                 packed, device=device)
         if rlc_ok:
             return True, [True] * n
+        _record_rlc_fallback(n)
     a, r, s, bh, bl, nb, valid = ed.pack_batch_device_hash(
         pubkeys, msgs, [b""] * n, n, parsed=parsed)
     verdict = dev.verify_hash_kernel(*convert.batch_hash_from_numpy(

@@ -432,6 +432,13 @@ def rlc_verify(packed, use_cache: bool | None = None, device="cuda") -> bool:
 # digest or scalar crosses back to the host.
 
 
+def device_hash_enabled() -> bool:
+    """COMETBFT_TPU_DEVICE_HASH=1 sends the verify pipeline's windows
+    down the device-hash path (crypto/dispatch.py).  Read on every call,
+    so tests and operators can flip it without a reload."""
+    return os.environ.get("COMETBFT_TPU_DEVICE_HASH", "0") == "1"
+
+
 # Static SHA-512 block bucket for R||A||M messages.  Vote sign-bytes
 # are ~110-130 bytes; +64 for R||A and +17 of padding needs 3 blocks.
 # A longer message raises ValueError("message exceeds max_blocks").

@@ -47,10 +47,18 @@ def split_spans(n: int, ndev: int) -> list[tuple[int, int]]:
 
 
 def _healthy_devices(devices):
-    """The mesh rotation as it stands: the port has no device-health
-    registry yet, which is the JAX package's behaviour when none is
-    installed."""
-    return devices
+    """Filter the mesh rotation through the process health registry
+    (crypto/devhealth.py): quarantined devices drop out of the split.
+    The full list when no registry is installed, or when every device
+    is benched (the pipeline's brownout owns that case), as in the JAX
+    package."""
+    from . import devhealth
+
+    reg = devhealth.registry()
+    if reg is None:
+        return devices
+    usable = [d for i, d in enumerate(devices) if reg.usable(str(i))]
+    return usable if usable else devices
 
 
 def mesh_devices():

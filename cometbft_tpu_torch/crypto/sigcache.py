@@ -25,8 +25,10 @@ program.
   call, and set_enabled(True / False) overrides the variable until
   set_enabled(None).  Off, every helper returns at once.
 
-The JAX package's CacheMetrics and flight-recorder hooks are not ported;
-the cache's own counters are (SigVerdictCache.stats).
+Instrumented as in the JAX package: CacheMetrics (libs/metrics.py,
+per-consumer labels through the `consumer(...)` context manager) and the
+flight recorder's EV_CACHE_LOOKUP / EV_CACHE_INSERT events on batch
+seams, beside the cache's own counters (SigVerdictCache.stats).
 """
 
 from __future__ import annotations
@@ -240,26 +242,42 @@ def set_enabled(v: bool | None) -> None:
     _enabled_override = v
 
 
-def _account(hits: int, negs: int, misses: int) -> None:
+def _metrics():
+    from ..libs import metrics as libmetrics
+
+    return libmetrics.cache_metrics()
+
+
+def _account(label: str, hits: int, negs: int, misses: int) -> None:
     c = cache()
     c.hits += hits
     c.negative_hits += negs
     c.misses += misses
+    cm = _metrics()
+    if cm is not None:
+        if hits:
+            cm.hits.labels(label).inc(hits)
+        if negs:
+            cm.negative_hits.labels(label).inc(negs)
+        if misses:
+            cm.misses.labels(label).inc(misses)
 
 
 def get(pubkey, msg: bytes, sig: bytes,
         key_type: str | None = None,
         label: str | None = None) -> bool | None:
     """Single-triple lookup: the verdict, or None (a miss, or the cache
-    off).  `label` is accepted as in the JAX package, where it names
-    the metrics series."""
+    off).  `label` names the consumer's metrics series (default: the
+    current consumer)."""
     if not enabled():
         return None
     v = cache().lookup(key(pubkey, msg, sig, key_type))
+    if label is None:
+        label = current_consumer()
     if v is None:
-        _account(0, 0, 1)
+        _account(label, 0, 0, 1)
     else:
-        _account(1, 0 if v else 1, 0)
+        _account(label, 1, 0 if v else 1, 0)
     return v
 
 
@@ -272,6 +290,12 @@ def insert(pubkey, msg: bytes, sig: bytes, verdict: bool,
     ev = c.store(key(pubkey, msg, sig, key_type), verdict)
     c.insertions += 1
     c.evictions += ev
+    cm = _metrics()
+    if cm is not None:
+        cm.insertions.labels(label or current_consumer()).inc()
+        if ev:
+            cm.evictions.inc(ev)
+        cm.entries.set(len(c))
 
 
 def partition(items, label: str | None = None,
@@ -298,7 +322,15 @@ def partition(items, label: str | None = None,
             hits += 1
             if not v:
                 negs += 1
-    _account(hits, negs, len(miss_idx) if count_misses else 0)
+    if label is None:
+        label = current_consumer()
+    _account(label, hits, negs, len(miss_idx) if count_misses else 0)
+    if hits and len(items) >= 2:
+        from ..libs import flightrec
+
+        flightrec.record(flightrec.EV_CACHE_LOOKUP, consumer=label,
+                         batch=len(items), hits=hits, negative=negs,
+                         misses=len(miss_idx))
     return verdicts, miss_idx
 
 
@@ -316,3 +348,16 @@ def insert_many(items, verdicts, label: str | None = None,
         n += 1
     c.insertions += n
     c.evictions += ev
+    if label is None:
+        label = current_consumer()
+    cm = _metrics()
+    if cm is not None:
+        cm.insertions.labels(label).inc(n)
+        if ev:
+            cm.evictions.inc(ev)
+        cm.entries.set(len(c))
+    if n >= 2:
+        from ..libs import flightrec
+
+        flightrec.record(flightrec.EV_CACHE_INSERT, consumer=label,
+                         count=n, evicted=ev)

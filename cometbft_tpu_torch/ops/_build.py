@@ -6,8 +6,11 @@ takes seconds).  The library lands in `ops/build/` under a name keyed by
 a hash of every source and header in `csrc/` and of the flags, so an
 edited source rebuilds and an unchanged one is reused.  Only the sources
 in the repository are used.  Where there is no `nvcc`, or it fails, the
-build raises with the compiler's output: nothing falls back to a plain
-version.
+build raises KernelBuildError with the compiler's output: nothing falls
+back to a plain version, and the verify pipeline hands the error to the
+caller instead of draining to the host (crypto/dispatch.py).  A library
+that failed to build fails again at once in the same process, without a
+second nvcc run.
 """
 
 from __future__ import annotations
@@ -69,8 +72,18 @@ SIGNATURES = {
     },
 }
 
+
+
+class KernelBuildError(RuntimeError):
+    """A kernel library did not build or load: no nvcc, an nvcc error, or
+    a library that ctypes cannot open.  Not a device fault: retrying on
+    the host would hide a broken install."""
+
+
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+# library name -> the message of its failed build or load
+_failed: dict[str, str] = {}
 # per library: {"seconds": build time or 0.0 when reused, "log": nvcc output}
 build_info: dict[str, dict] = {}
 
@@ -81,8 +94,9 @@ def nvcc() -> str:
             return str(Path(cand) / "bin" / "nvcc")
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
-                           "toolkit (set CUDA_HOME or put nvcc on PATH)")
+        raise KernelBuildError("nvcc not found: the CUDA kernels need the "
+                               "CUDA toolkit (set CUDA_HOME or put nvcc on "
+                               "PATH)")
     return found
 
 
@@ -125,18 +139,28 @@ def build(names: list[str]) -> None:
             continue
         os.replace(tmp, so)
     if failed:
-        raise RuntimeError("\n".join(failed))
+        raise KernelBuildError("\n".join(failed))
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for csrc/<name>.cu, built at first use."""
     with _lock:
         lib = _libs.get(name)
-        if lib is None:
+        if lib is not None:
+            return lib
+        if name in _failed:
+            raise KernelBuildError(_failed[name])
+        try:
             build([name])
             lib = ctypes.CDLL(str(_target(name)))
             for fn, argtypes in SIGNATURES[name].items():
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = ctypes.c_int
-            _libs[name] = lib
+        except KernelBuildError as e:
+            _failed[name] = str(e)
+            raise
+        except (OSError, AttributeError) as e:
+            _failed[name] = f"{name} did not load: {e!r}"
+            raise KernelBuildError(_failed[name]) from e
+        _libs[name] = lib
         return lib

@@ -180,8 +180,8 @@ def _lib(name: str = "ed25519_kernels"):
     lib = _build.load(name)
     sizes = {fn: getattr(lib, fn)() for fn in _LIB_SIZES[name]}
     if sizes != _LIB_SIZES[name]:
-        raise RuntimeError(f"{name} block sizes {sizes} differ from "
-                           "ops/cuda_msm.py")
+        raise _build.KernelBuildError(f"{name} block sizes {sizes} differ "
+                                      "from ops/cuda_msm.py")
     return lib
 
 

@@ -44,9 +44,9 @@ def _lib():
 
     lib = _build.load("ed25519_persig")
     if lib.ed25519_persig_threads() != PERSIG_THREADS:
-        raise RuntimeError(f"ed25519_persig block size "
-                           f"{lib.ed25519_persig_threads()} differs from "
-                           "ops/cuda_persig.py")
+        raise _build.KernelBuildError(
+            f"ed25519_persig block size {lib.ed25519_persig_threads()} "
+            "differs from ops/cuda_persig.py")
     return lib
 
 

@@ -45,9 +45,9 @@ def _lib():
 
     lib = _build.load("secp256k1_kernels")
     if lib.secp_threads() != SECP_THREADS:
-        raise RuntimeError(f"secp256k1_kernels block size "
-                           f"{lib.secp_threads()} differs from "
-                           "ops/cuda_secp.py")
+        raise _build.KernelBuildError(
+            f"secp256k1_kernels block size {lib.secp_threads()} differs "
+            "from ops/cuda_secp.py")
     return lib
 
 

@@ -135,6 +135,66 @@ class DeferredSigBatch:
         raise CommitVerificationError(
             "BUG: deferred batch failed with no invalid signatures")
 
+    def verify_async(self, pipeline, subsystem: str = "pipeline",
+                     lane: str | None = None):
+        """Submit the collected entries through a VerifyPipeline
+        (crypto/dispatch.py), on the pipeline's device, instead of
+        verifying inline; returns a waiter whose .wait() has exactly
+        verify()'s semantics (raises ErrInvalidSignature naming the
+        first failing commit, with .failed_ctx) once the window's
+        verdicts resolve.  The caller keeps collecting the next window
+        while this one is staged or on the device.  `lane` puts the
+        window under another QoS lane (crypto/sched.py) without
+        changing `subsystem`'s trace and ledger attribution."""
+        self._entries, entries = [], self._entries
+        if not entries:
+            return _DeferredVerdict(entries, None)
+        handle = pipeline.submit(
+            [(pub, sign_bytes, sig)
+             for _, _, pub, sign_bytes, sig in entries],
+            subsystem=subsystem, ctx=entries[0][1],
+            device_threshold=self.DEVICE_THRESHOLD, lane=lane)
+        return _DeferredVerdict(entries, handle)
+
+
+class _DeferredVerdict:
+    """An in-flight window's verdict: .wait() keeps
+    DeferredSigBatch.verify()'s raise contract."""
+
+    __slots__ = ("_entries", "handle")
+
+    def __init__(self, entries, handle):
+        self._entries = entries
+        self.handle = handle
+
+    def done(self) -> bool:
+        return self.handle is None or self.handle.done()
+
+    def wait(self, timeout: float | None = None) -> None:
+        if self.handle is None:
+            return
+        ok, verdicts = self.handle.result(timeout)
+        if ok:
+            return
+        for (label, ctx, _, _, sig), valid in zip(self._entries,
+                                                  verdicts):
+            if not valid:
+                raise DeferredSigBatch._fail(label, ctx, sig)
+        raise CommitVerificationError(
+            "BUG: deferred window failed with no invalid signatures")
+
+    def failed_contexts(self, timeout: float | None = None) -> set:
+        """The set of ctx values (heights, for commit collection) with
+        at least one invalid signature, instead of the first failure's
+        raise; empty when the whole window verified."""
+        if self.handle is None:
+            return set()
+        ok, verdicts = self.handle.result(timeout)
+        if ok:
+            return set()
+        return {ctx for (_, ctx, _, _, _), valid
+                in zip(self._entries, verdicts) if not valid}
+
 
 def verify_commit(chain_id: str, vals, block_id, height: int, commit,
                   device="cuda") -> None:

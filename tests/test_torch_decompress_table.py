@@ -6,6 +6,8 @@ contract.  The inputs are made with numpy from fixed seeds: random
 32-byte encodings plus every decompression edge (y >= p, x = 0 with the
 sign bit set, u/v not a square)."""
 
+import gc
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,6 +24,20 @@ from cometbft_tpu_torch.ops import fe as tfe
 torch.set_num_threads(1)
 
 WIDTHS = (1, 7, 129)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _frozen_heap():
+    """After each test's own objects are collected, the heap is frozen
+    for the next: the per-test gc.collect() of the leak checks walks only
+    what one test made.  Unfrozen at the module's end."""
+    yield
+    gc.unfreeze()
+
+
+@pytest.fixture(autouse=True)
+def _freeze_heap():
+    gc.freeze()
 
 
 def _edge_encodings():

@@ -11,6 +11,7 @@ crypto/merkle.py and crypto/hash.py.  The JAX whole programs
 (rlc_verify_hash_kernel, verify_hash_kernel) are minutes of XLA compile
 and run under -m slow."""
 
+import gc
 import hashlib
 import importlib
 import importlib.util
@@ -50,6 +51,20 @@ torch.set_num_threads(1)   # many small ops; no OpenMP spin beside busy workers
 
 L = sc.L
 CPU = torch.device("cpu")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _frozen_heap():
+    """After each test's own objects are collected, the heap is frozen
+    for the next: the per-test gc.collect() of the leak checks walks only
+    what one test made.  Unfrozen at the module's end."""
+    yield
+    gc.unfreeze()
+
+
+@pytest.fixture(autouse=True)
+def _freeze_heap():
+    gc.freeze()
 
 
 def _int(row) -> int:

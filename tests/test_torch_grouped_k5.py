@@ -19,6 +19,8 @@ Tolerance: exact — torch.equal on the int32 limbs (no freezing): the
 kernel and the plain version are the same additions on the same
 operands."""
 
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -31,6 +33,20 @@ from cometbft_tpu_torch.ops import fe as tfe
 P = tfe.P
 WIDTHS = (1, 31, 33, 200)
 NWINS = (1, 3, 26)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _frozen_heap():
+    """After each test's own objects are collected, the heap is frozen
+    for the next: the per-test gc.collect() of the leak checks walks only
+    what one test made.  Unfrozen at the module's end."""
+    yield
+    gc.unfreeze()
+
+
+@pytest.fixture(autouse=True)
+def _freeze_heap():
+    gc.freeze()
 
 
 @pytest.fixture(scope="module", autouse=True)

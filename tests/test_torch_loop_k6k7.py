@@ -28,6 +28,8 @@ limb for limb (torch.equal on the int32 limbs: the same additions on the
 same operands); the JAX package's values at canonical values (affine
 coordinates, projective equality)."""
 
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -39,6 +41,20 @@ from cometbft_tpu_torch.ops import fe as tfe
 
 P = tfe.P
 QUADS = (1, 2, 4, 8)       # quads per task the kernel takes, up to r
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _frozen_heap():
+    """After each test's own objects are collected, the heap is frozen
+    for the next: the per-test gc.collect() of the leak checks walks only
+    what one test made.  Unfrozen at the module's end."""
+    yield
+    gc.unfreeze()
+
+
+@pytest.fixture(autouse=True)
+def _freeze_heap():
+    gc.freeze()
 
 
 @pytest.fixture(scope="module", autouse=True)

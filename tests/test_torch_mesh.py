@@ -11,6 +11,7 @@ under each setting (and once more after it), and the JAX package's
 values come from private copies of its modules loaded under the same
 setting, leaving its imported modules as they are."""
 
+import gc
 import importlib
 import importlib.util
 import sys
@@ -35,6 +36,20 @@ from cometbft_tpu_torch.ops import sharding
 from cometbft_tpu_torch.types import validation as tval
 
 CPU = torch.device("cpu")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _frozen_heap():
+    """After each test's own objects are collected, the heap is frozen
+    for the next: the per-test gc.collect() of the leak checks walks only
+    what one test made.  Unfrozen at the module's end."""
+    yield
+    gc.unfreeze()
+
+
+@pytest.fixture(autouse=True)
+def _freeze_heap():
+    gc.freeze()
 
 
 @pytest.fixture(autouse=True)

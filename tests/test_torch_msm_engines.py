@@ -9,7 +9,18 @@ mode output lane by output lane, at canonical values (frozen, affine);
 K5's equal its 32-lane per-block order limb for limb and sum, as K3's
 partials do, to the JAX XLA scan; the RLC
 verdicts under every configuration equal the JAX rlc_verify_kernel's on
-the same packed inputs."""
+the same packed inputs.
+
+The JAX references (the RLC program's verdicts, the interpret-mode
+kernels' partials, the XLA scan) are computed in one spawned process,
+started with the module and sending each as it is ready: its tracing and
+XLA compiles run beside the port's plain versions in this process
+instead of taking turns with them for the interpreter lock.  The RLC
+tests come first, so this process works while the child compiles the
+rest."""
+
+import gc
+import multiprocessing
 
 import jax
 import jax.numpy as jnp
@@ -88,6 +99,87 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+def _jax_references(conn, rlc_packs, loop_in, group_in, config):
+    """In the spawned process: the JAX package's RLC verdicts on both
+    packs, K6's and K7's interpret-mode partials at LOOP_OUT output lanes
+    a block (a fresh process, so no earlier trace without the override
+    is cached), and the XLA scan, each sent back as it is ready."""
+    try:
+        for name, value in config.items():
+            jax.config.update(name, value)
+        conn.send(("rlc", {label: bool(np.asarray(jdev.rlc_verify_device(
+            *packed))) for label, packed in rlc_packs.items()}))
+        jt, jm, jn = (jnp.asarray(x) for x in loop_in)
+        pm.OUT_PER_BLK = LOOP_OUT
+        conn.send(("loop", (
+            np.asarray(pm.msm_window_loop(jt, jm, jn, interpret=True,
+                                          blk=LOOP_BLK)),
+            [np.asarray(pm.select_tree(jt, jm[j], jn[j], interpret=True,
+                                       blk=LOOP_BLK))
+             for j in range(LOOP_NWIN)])))
+        conn.send(("group", np.asarray(jdev._msm_scan(
+            *(jnp.asarray(x) for x in group_in)))))
+    except BaseException as e:              # noqa: BLE001
+        conn.send(("error", repr(e)))
+    finally:
+        conn.close()
+
+
+class _References:
+    """The spawned process's results, received as the tests ask."""
+
+    def __init__(self, conn, proc):
+        self.conn, self.proc, self.got = conn, proc, {}
+
+    def take(self, name):
+        while name not in self.got:
+            kind, value = self.conn.recv()
+            if kind == "error":
+                raise RuntimeError(f"JAX references failed: {value}")
+            self.got[kind] = value
+        if len(self.got) == 3:
+            self.proc.join(timeout=60)
+        return self.got[name]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_side():
+    """Inputs made here, the JAX references started in the child."""
+    rlc_packs = _rlc_packs()
+    loop_in = _msm_inputs(LOOP_W, LOOP_NWIN, 3)
+    group_in = _msm_inputs(GROUP_W, GROUP_NWIN, 17)
+    config = {name: getattr(jax.config, name) for name in (
+        "jax_platforms", "jax_compilation_cache_dir",
+        "jax_persistent_cache_min_compile_time_secs")}
+    ctx = multiprocessing.get_context("spawn")
+    recv, send = ctx.Pipe(duplex=False)
+    proc = ctx.Process(target=_jax_references, daemon=True, args=(
+        send, rlc_packs, (loop_in[0].numpy(), *loop_in[1:]),
+        (group_in[0].numpy(), *group_in[1:]), config))
+    proc.start()
+    send.close()
+    refs = _References(recv, proc)
+    yield {"refs": refs, "loop_in": loop_in, "group_in": group_in,
+           "rlc_packs": rlc_packs}
+    if proc.is_alive():
+        proc.terminate()
+    proc.join(timeout=10)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _frozen_heap():
+    """After each test's own objects are collected, the heap is frozen
+    for the next: the per-test gc.collect() of the leak checks walks only
+    what one test made.  Unfrozen at the module's end."""
+    yield
+    gc.unfreeze()
+
+
+@pytest.fixture(autouse=True)
+def _freeze_heap():
+    gc.freeze()
 
 
 @pytest.fixture(autouse=True)
@@ -194,27 +286,148 @@ def test_auto_engine_is_straus_at_ed25519_widths():
     assert {jmsm.choose_engine(w, 5) for w in widths} == {"straus"}
 
 
+# -- routing and verdicts under every configuration -----------------------------
+
+CONFIGS = {
+    "window_major": {},
+    "window_loop": {"USE_PALLAS_MSM_MAJOR": False},
+    "grouped_g4": {"WIN_GROUP": 4},
+    "grouped_g13": {"WIN_GROUP": 13},
+    "select_tree": {"USE_PALLAS_MSM_MAJOR": False,
+                    "USE_PALLAS_MSM_LOOP": False, "USE_PALLAS_TREE": True},
+    "fold_off": {"USE_PALLAS_FOLD": False},
+    "plain_scan": {"USE_PALLAS_MSM_MAJOR": False,
+                   "USE_PALLAS_MSM_LOOP": False},
+}
+
+# plain version -> calls per RLC verify (A side 52 windows, R side 26)
+KERNEL_PLAINS = ("msm_window_major_plain", "msm_window_major_grouped_plain",
+                 "msm_window_loop_plain", "select_tree_plain",
+                 "fold_verify_plain")
+EXPECTED_CALLS = {
+    "window_major": {"msm_window_major_plain": 2, "fold_verify_plain": 1},
+    "window_loop": {"msm_window_loop_plain": 2, "fold_verify_plain": 1},
+    "grouped_g4": {"msm_window_major_grouped_plain": 2,
+                   "fold_verify_plain": 1},
+    "grouped_g13": {"msm_window_major_grouped_plain": 2,
+                    "fold_verify_plain": 1},
+    "select_tree": {"select_tree_plain": 52 + 26},
+    "fold_off": {"msm_window_major_plain": 2},
+    "plain_scan": {},
+}
+GROUPS = {"grouped_g4": [4, 2], "grouped_g13": [13, 13]}
+
+
+def _apply(monkeypatch, config):
+    for name, value in CONFIGS[config].items():
+        monkeypatch.setattr(cuda_msm if name == "WIN_GROUP" else tdev, name,
+                            value)
+
+
+def _spy(monkeypatch):
+    calls = {name: [] for name in KERNEL_PLAINS}
+    for name in KERNEL_PLAINS:
+        real = getattr(cuda_msm, name)
+
+        def spy(*args, _name=name, _real=real):
+            calls[_name].append(args[3] if _name.startswith(
+                "msm_window_major_grouped") else None)
+            return _real(*args)
+
+        monkeypatch.setattr(cuda_msm, name, spy)
+    return calls
+
+
+def _rlc_packs():
+    """Ten signatures under ten keys (K = 16, N = 16: the shape of the
+    JAX suite's RLC program test, test_ed25519.py::test_rlc_batch_equation),
+    clean and with one tampered signature, packed."""
+    rng = np.random.default_rng(41)
+    pks, msgs, sigs = [], [], []
+    for i in range(10):
+        k = ted.PrivKey.generate(rng.bytes(32))
+        m = rng.bytes(30 + i)
+        pks.append(k.pub_key().bytes())
+        msgs.append(m)
+        sigs.append(k.sign(m))
+    bad = list(sigs)
+    bad[6] = bad[6][:7] + bytes([bad[6][7] ^ 0x10]) + bad[6][8:]
+    return {label: ted.pack_rlc(pks, msgs, s)
+            for label, s in (("accept", sigs), ("tampered", bad))}
+
+
+@pytest.fixture(scope="module")
+def rlc_case(_jax_side):
+    """The packed batches and the JAX program's verdicts on both (the
+    child's)."""
+    want = _jax_side["refs"].take("rlc")
+    cases = {label: (packed, want[label])
+             for label, packed in _jax_side["rlc_packs"].items()}
+    assert cases["accept"][0][0].shape == (8, 16)
+    assert cases["accept"][0][1].shape == (8, 16)
+    assert [v for _, v in cases.values()] == [True, False]
+    return cases
+
+
+@pytest.mark.parametrize("config", list(CONFIGS))
+def test_rlc_routes_and_verdicts(rlc_case, monkeypatch, config):
+    """Each configuration calls exactly its kernels' wrappers (seen
+    through their plain versions, which the CPU runs), and both RLC
+    programs return the JAX program's verdicts, at widths 16 with no
+    legal block (BLK 512: ragged blocks) and with one (BLK 8)."""
+    _apply(monkeypatch, config)
+    calls = _spy(monkeypatch)
+    for blk in (512, 8):
+        monkeypatch.setattr(cuda_msm, "BLK", blk)
+        for label, (packed, want) in rlc_case.items():
+            t = convert.packed_from_numpy(packed, "cpu")
+            for name in calls:
+                calls[name].clear()
+            got = tdev.rlc_verify_kernel(*t)
+            assert got.dim() == 0 and bool(got) is want, (blk, label)
+            assert {k: len(v) for k, v in calls.items() if v} == \
+                EXPECTED_CALLS[config], (blk, label)
+            if config in GROUPS:
+                assert calls["msm_window_major_grouped_plain"] == \
+                    GROUPS[config]
+            if blk == 512:
+                tab, ok = tdev.build_a_tables(t[0])
+                got = tdev.rlc_verify_kernel_cached_a(tab, ok, *t[1:])
+                assert bool(got) is want, ("cached_a", label)
+
+
+def test_msm_is_tables_then_scan(rlc_case):
+    """_msm: one side's decompression (K1), tables (K2) and scan."""
+    t = convert.packed_from_numpy(rlc_case["accept"][0], "cpu")
+    point, ok = tdev._msm(t[1], t[4], t[5])
+    tab, ok_t = tdev.build_a_tables(t[1])
+    assert bool(ok) and bool(ok_t)
+    assert torch.equal(point, tdev._msm_scan(tab, t[4], t[5]))
+
+
+def test_bucket_engine_raises(rlc_case, monkeypatch):
+    """The bucket engine is not ported: asking for it raises in the fused
+    and the non-fused programs alike, and Straus never runs in its
+    place."""
+    t = convert.packed_from_numpy(rlc_case["accept"][0], "cpu")
+    calls = _spy(monkeypatch)
+    monkeypatch.setenv("COMETBFT_TPU_MSM_ENGINE", "bucket")
+    for config in ("window_major", "fold_off", "plain_scan"):
+        _apply(monkeypatch, config)
+        with pytest.raises(NotImplementedError, match="bucket"):
+            tdev.rlc_verify_kernel(*t)
+    assert not any(calls.values())
+    monkeypatch.setenv("COMETBFT_TPU_MSM_ENGINE", "straus")
+    assert bool(tdev.rlc_verify_kernel(*t))
+
+
 # -- K6 / K7 against the interpret-mode Pallas kernels ------------------------
 
 @pytest.fixture(scope="module")
-def loop_case():
-    """The inputs and the JAX kernels' partials, computed once: the
-    OUT_PER_BLK override is traced into the kernels, so the jit caches
-    are cleared around it."""
-    tab, mags, negs = _msm_inputs(LOOP_W, LOOP_NWIN, 3)
-    jt, jm, jn = jnp.asarray(tab.numpy()), jnp.asarray(mags), jnp.asarray(negs)
-    saved = pm.OUT_PER_BLK
-    jax.clear_caches()
-    pm.OUT_PER_BLK = LOOP_OUT
-    try:
-        loop = np.asarray(pm.msm_window_loop(jt, jm, jn, interpret=True,
-                                             blk=LOOP_BLK))
-        tree = [np.asarray(pm.select_tree(jt, jm[j], jn[j], interpret=True,
-                                          blk=LOOP_BLK))
-                for j in range(LOOP_NWIN)]
-    finally:
-        pm.OUT_PER_BLK = saved
-        jax.clear_caches()
+def loop_case(_jax_side):
+    """The inputs and the JAX kernels' partials (the child's)."""
+    tab, mags, negs = _jax_side["loop_in"]
+    loop, tree = _jax_side["refs"].take("loop")
     return tab, mags, negs, loop, tree
 
 
@@ -275,10 +488,9 @@ def _per_block_order(tab, mags, negs):
 
 
 @pytest.fixture(scope="module")
-def group_case():
-    tab, mags, negs = _msm_inputs(GROUP_W, GROUP_NWIN, 17)
-    want = jdev._msm_scan(jnp.asarray(tab.numpy()), jnp.asarray(mags),
-                          jnp.asarray(negs))
+def group_case(_jax_side):
+    tab, mags, negs = _jax_side["group_in"]
+    want = _jax_side["refs"].take("group")
     k3 = cuda_msm.msm_window_major(tab, torch.from_numpy(mags),
                                    torch.from_numpy(negs), group=1)
     return (tab, mags, negs, _proj(np.asarray(want)), k3,
@@ -338,134 +550,3 @@ def test_grouped_matches_pallas_kernel():
                                         torch.from_numpy(negs), group=grp)
         assert _proj(tdev._tree_reduce(got, 1).numpy()) == \
             _proj(jdev._tree_reduce(jnp.asarray(want), 1))
-
-
-# -- routing and verdicts under every configuration -----------------------------
-
-CONFIGS = {
-    "window_major": {},
-    "window_loop": {"USE_PALLAS_MSM_MAJOR": False},
-    "grouped_g4": {"WIN_GROUP": 4},
-    "grouped_g13": {"WIN_GROUP": 13},
-    "select_tree": {"USE_PALLAS_MSM_MAJOR": False,
-                    "USE_PALLAS_MSM_LOOP": False, "USE_PALLAS_TREE": True},
-    "fold_off": {"USE_PALLAS_FOLD": False},
-    "plain_scan": {"USE_PALLAS_MSM_MAJOR": False,
-                   "USE_PALLAS_MSM_LOOP": False},
-}
-
-# plain version -> calls per RLC verify (A side 52 windows, R side 26)
-KERNEL_PLAINS = ("msm_window_major_plain", "msm_window_major_grouped_plain",
-                 "msm_window_loop_plain", "select_tree_plain",
-                 "fold_verify_plain")
-EXPECTED_CALLS = {
-    "window_major": {"msm_window_major_plain": 2, "fold_verify_plain": 1},
-    "window_loop": {"msm_window_loop_plain": 2, "fold_verify_plain": 1},
-    "grouped_g4": {"msm_window_major_grouped_plain": 2,
-                   "fold_verify_plain": 1},
-    "grouped_g13": {"msm_window_major_grouped_plain": 2,
-                    "fold_verify_plain": 1},
-    "select_tree": {"select_tree_plain": 52 + 26},
-    "fold_off": {"msm_window_major_plain": 2},
-    "plain_scan": {},
-}
-GROUPS = {"grouped_g4": [4, 2], "grouped_g13": [13, 13]}
-
-
-def _apply(monkeypatch, config):
-    for name, value in CONFIGS[config].items():
-        monkeypatch.setattr(cuda_msm if name == "WIN_GROUP" else tdev, name,
-                            value)
-
-
-def _spy(monkeypatch):
-    calls = {name: [] for name in KERNEL_PLAINS}
-    for name in KERNEL_PLAINS:
-        real = getattr(cuda_msm, name)
-
-        def spy(*args, _name=name, _real=real):
-            calls[_name].append(args[3] if _name.startswith(
-                "msm_window_major_grouped") else None)
-            return _real(*args)
-
-        monkeypatch.setattr(cuda_msm, name, spy)
-    return calls
-
-
-@pytest.fixture(scope="module")
-def rlc_case():
-    """Ten signatures under ten keys (K = 16, N = 16: the shape of the
-    JAX suite's RLC program test, test_ed25519.py::test_rlc_batch_equation),
-    clean and with one tampered signature, and the JAX program's
-    verdicts on both."""
-    rng = np.random.default_rng(41)
-    pks, msgs, sigs = [], [], []
-    for i in range(10):
-        k = ted.PrivKey.generate(rng.bytes(32))
-        m = rng.bytes(30 + i)
-        pks.append(k.pub_key().bytes())
-        msgs.append(m)
-        sigs.append(k.sign(m))
-    bad = list(sigs)
-    bad[6] = bad[6][:7] + bytes([bad[6][7] ^ 0x10]) + bad[6][8:]
-    cases = {}
-    for label, s in (("accept", sigs), ("tampered", bad)):
-        packed = ted.pack_rlc(pks, msgs, s)
-        cases[label] = (packed, bool(np.asarray(jdev.rlc_verify_device(
-            *packed))))
-    assert cases["accept"][0][0].shape == (8, 16)
-    assert cases["accept"][0][1].shape == (8, 16)
-    assert [v for _, v in cases.values()] == [True, False]
-    return cases
-
-
-@pytest.mark.parametrize("config", list(CONFIGS))
-def test_rlc_routes_and_verdicts(rlc_case, monkeypatch, config):
-    """Each configuration calls exactly its kernels' wrappers (seen
-    through their plain versions, which the CPU runs), and both RLC
-    programs return the JAX program's verdicts, at widths 16 with no
-    legal block (BLK 512: ragged blocks) and with one (BLK 8)."""
-    _apply(monkeypatch, config)
-    calls = _spy(monkeypatch)
-    for blk in (512, 8):
-        monkeypatch.setattr(cuda_msm, "BLK", blk)
-        for label, (packed, want) in rlc_case.items():
-            t = convert.packed_from_numpy(packed, "cpu")
-            for name in calls:
-                calls[name].clear()
-            got = tdev.rlc_verify_kernel(*t)
-            assert got.dim() == 0 and bool(got) is want, (blk, label)
-            assert {k: len(v) for k, v in calls.items() if v} == \
-                EXPECTED_CALLS[config], (blk, label)
-            if config in GROUPS:
-                assert calls["msm_window_major_grouped_plain"] == \
-                    GROUPS[config]
-            if blk == 512:
-                tab, ok = tdev.build_a_tables(t[0])
-                got = tdev.rlc_verify_kernel_cached_a(tab, ok, *t[1:])
-                assert bool(got) is want, ("cached_a", label)
-
-
-def test_msm_is_tables_then_scan(rlc_case):
-    """_msm: one side's decompression (K1), tables (K2) and scan."""
-    t = convert.packed_from_numpy(rlc_case["accept"][0], "cpu")
-    point, ok = tdev._msm(t[1], t[4], t[5])
-    tab, ok_t = tdev.build_a_tables(t[1])
-    assert bool(ok) and bool(ok_t)
-    assert torch.equal(point, tdev._msm_scan(tab, t[4], t[5]))
-
-
-def test_bucket_engine_raises(rlc_case, monkeypatch):
-    """The bucket engine is not ported: asking for it raises in the fused
-    and the non-fused programs alike, and Straus never runs in its
-    place."""
-    t = convert.packed_from_numpy(rlc_case["accept"][0], "cpu")
-    calls = _spy(monkeypatch)
-    monkeypatch.setenv("COMETBFT_TPU_MSM_ENGINE", "bucket")
-    for config in ("window_major", "fold_off", "plain_scan"):
-        _apply(monkeypatch, config)
-        with pytest.raises(NotImplementedError, match="bucket"):
-            tdev.rlc_verify_kernel(*t)
-    assert not any(calls.values())
-    monkeypatch.setenv("COMETBFT_TPU_MSM_ENGINE", "straus")
-    assert bool(tdev.rlc_verify_kernel(*t))

@@ -7,8 +7,16 @@ Tolerance: exact.  The partials (4, 20, k) are reduced with the port's
 _tree_reduce and compared at canonical values — affine (x, y) as Python
 ints — with the JAX XLA scan (_msm_scan), with the interpret-mode Pallas
 kernel, and with sum_i e_i * (-P_i) computed with ed25519_ref.  Digits
-17, 31 and -1 select the identity, as the JAX select cascade does."""
+17, 31 and -1 select the identity, as the JAX select cascade does.
 
+The XLA scan is one jitted program at one shape, traced and compiled
+once for its six cases: each case's digits sit in the last windows and
+first lanes of (SCAN_NWIN, SCAN_W), the rest zero digits, which select
+the identity."""
+
+import gc
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,6 +32,8 @@ from cometbft_tpu_torch.ops import fe as tfe
 P = tfe.P
 WIDTHS = (1, 31, 33, 40, 128, 200)
 NWINS = (1, 3, 26)
+SCAN_CASES = [(1, 26), (31, 3), (33, 1), (40, 26), (128, 3), (200, 1)]
+SCAN_W, SCAN_NWIN = 200, 26
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -81,6 +91,46 @@ def _inputs(w, nwin, seed):
     return pts, tab, mags, negs
 
 
+def _embed(tab, mags, negs):
+    """A case's table and digits inside the scan's one shape: its digits
+    in the last windows (MSB-first, so the leading windows only double
+    the identity) and first lanes; lane 0's table fills the rest, under
+    digit 0."""
+    nwin, w = mags.shape
+    t = tab.numpy()
+    big = np.concatenate([t, np.repeat(t[..., :1], SCAN_W - w, -1)], -1)
+    m = np.zeros((SCAN_NWIN, SCAN_W), np.int32)
+    n = np.zeros((SCAN_NWIN, SCAN_W), bool)
+    m[SCAN_NWIN - nwin:, :w] = mags
+    n[SCAN_NWIN - nwin:, :w] = negs
+    return big, m, n
+
+
+@pytest.fixture(scope="module")
+def scan_case():
+    """The JAX package's XLA scan of every SCAN_CASES input, jitted
+    once, and the inputs."""
+    scan = jax.jit(jdev._msm_scan)
+    inputs = {c: _inputs(c[0], c[1], 7 * c[0] + c[1]) for c in SCAN_CASES}
+    return inputs, {c: np.asarray(scan(*(jnp.asarray(x)
+                                         for x in _embed(*v[1:]))))
+                    for c, v in inputs.items()}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _frozen_heap():
+    """After each test's own objects are collected, the heap is frozen
+    for the next: the per-test gc.collect() of the leak checks walks only
+    what one test made.  Unfrozen at the module's end."""
+    yield
+    gc.unfreeze()
+
+
+@pytest.fixture(autouse=True)
+def _freeze_heap():
+    gc.freeze()
+
+
 def _k3_sum(tab, mags, negs):
     parts = cuda_msm.msm_window_major(tab, torch.from_numpy(mags),
                                       torch.from_numpy(negs), group=1)
@@ -115,15 +165,13 @@ def test_k3_equals_scalar_sum(w, nwin):
     assert cuda_msm.msm_window_major.launches == 0     # CPU: plain only
 
 
-@pytest.mark.parametrize("w, nwin", [(1, 26), (31, 3), (33, 1), (40, 26),
-                                     (128, 3), (200, 1)])
-def test_k3_matches_xla_msm_scan(w, nwin):
+@pytest.mark.parametrize("w, nwin", SCAN_CASES)
+def test_k3_matches_xla_msm_scan(scan_case, w, nwin):
     """Each width and window count once against the JAX package's XLA
-    scan (one XLA compile per shape)."""
-    _, tab, mags, negs = _inputs(w, nwin, 7 * w + nwin)
-    want = jdev._msm_scan(jnp.asarray(tab.numpy()), jnp.asarray(mags),
-                          jnp.asarray(negs))
-    assert _k3_sum(tab, mags, negs) == _affine(want)
+    scan (one jitted program, each case embedded in its shape)."""
+    inputs, want = scan_case
+    _, tab, mags, negs = inputs[(w, nwin)]
+    assert _k3_sum(tab, mags, negs) == _affine(want[(w, nwin)])
 
 
 def test_k3_matches_pallas_kernel():

@@ -14,6 +14,7 @@ equal the bucket route's, ed25519_ref's and the JAX package's
 per-signature program (its packer and jitted verify_kernel at bucket 16,
 as its own tests run it).  Exact comparisons throughout."""
 
+import gc
 import ctypes
 import re
 import shutil
@@ -45,6 +46,20 @@ CPU = torch.device("cpu")
 
 
 # -- the header ---------------------------------------------------------------
+
+@pytest.fixture(scope="module", autouse=True)
+def _frozen_heap():
+    """After each test's own objects are collected, the heap is frozen
+    for the next: the per-test gc.collect() of the leak checks walks only
+    what one test made.  Unfrozen at the module's end."""
+    yield
+    gc.unfreeze()
+
+
+@pytest.fixture(autouse=True)
+def _freeze_heap():
+    gc.freeze()
+
 
 def _constants(name):
     src = (CSRC / name).read_text()

@@ -10,6 +10,7 @@ The JAX package's whole device programs take tens of seconds each to
 compile on the CPU, so the tests that run them are in the slow tier (the
 last section)."""
 
+import gc
 import importlib
 import secrets
 
@@ -39,6 +40,20 @@ B = 8
 
 
 # -- fixtures -----------------------------------------------------------------
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _frozen_heap():
+    """After each test's own objects are collected, the heap is frozen
+    for the next: the per-test gc.collect() of the leak checks walks only
+    what one test made.  Unfrozen at the module's end."""
+    yield
+    gc.unfreeze()
+
+
+@pytest.fixture(autouse=True)
+def _freeze_heap():
+    gc.freeze()
 
 
 @pytest.fixture(autouse=True)

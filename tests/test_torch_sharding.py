@@ -9,6 +9,7 @@ run their kernels in turn.  Tolerance: exact — the same bucket and
 device choices, the same verdicts, points equal at canonical (affine)
 values, gathered partials equal limb for limb."""
 
+import gc
 import functools
 
 import jax
@@ -31,6 +32,20 @@ from cometbft_tpu_torch.ops import sharding
 
 CPU = torch.device("cpu")
 MSM_W, MSM_NWIN = 32, 4
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _frozen_heap():
+    """After each test's own objects are collected, the heap is frozen
+    for the next: the per-test gc.collect() of the leak checks walks only
+    what one test made.  Unfrozen at the module's end."""
+    yield
+    gc.unfreeze()
+
+
+@pytest.fixture(autouse=True)
+def _freeze_heap():
+    gc.freeze()
 
 
 @pytest.fixture(scope="module", autouse=True)

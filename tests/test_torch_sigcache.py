@@ -10,6 +10,8 @@ commit's error is the same hot, cold and with the cache off, in both
 packages, and a hot pass reaches no verifier.  The port runs with
 device="cpu"."""
 
+import gc
+
 import pytest
 import torch
 
@@ -36,6 +38,20 @@ torch.set_num_threads(1)
 
 CHAIN_ID = "sigcache-chain"
 CPU = torch.device("cpu")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _frozen_heap():
+    """After each test's own objects are collected, the heap is frozen
+    for the next: the per-test gc.collect() of the leak checks walks only
+    what one test made.  Unfrozen at the module's end."""
+    yield
+    gc.unfreeze()
+
+
+@pytest.fixture(autouse=True)
+def _freeze_heap():
+    gc.freeze()
 
 
 @pytest.fixture(autouse=True)
@@ -451,7 +467,7 @@ def test_lockrank_table_is_the_jax_packages():
         assert jlockrank.LOCK_RANKS[name] == rank
         assert (name in lockrank.MULTI_OK) == (name in jlockrank.MULTI_OK)
     with pytest.raises(ValueError):
-        lockrank.RankedLock("dispatch.cv")
+        lockrank.RankedLock("consensus.state")    # no lock of the port
     assert isinstance(ted.ATableCache()._lock, lockrank.RankedLock)
     assert ted.ATableCache()._lock.name == "ed25519.atable"
     assert tsk.QTableCache()._lock.name == "secp256k1.qtable"
