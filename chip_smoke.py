@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's commit-verification paths on one NVIDIA
 card (Ed25519 in each of its MSM engine configurations, the device-hash
-route, secp256k1 and mixed-key commits), and hold each of its CUDA
+route, secp256k1 and mixed-key commits, the verify pipeline and the
+consensus vote stream), and hold each of its CUDA
 kernels against its plain torch version.  Every per-signature
 localization of an Ed25519 reject (ops/ed25519.verify_kernel) must launch
 exactly one K1 and one K14, on one device over the live signatures.
@@ -132,7 +133,28 @@ result):
              a cached window (path "cache", no launch); two logical
              shards (in-order publication, exact launches per window).
              Outside the fault steps every window resolves on the device;
- 11. engines the same entry points under each MSM engine configuration
+ 11. votes   the consensus vote path: crypto/votestream's StreamingVerifier
+             on the pipeline's consensus lane, its verdicts consumed by
+             types/vote_set.VoteSet (the exact-triple Preverified
+             contract), as the consensus reactor does, with the verdict
+             cache on: four peers gossip the 300 votes of one height (a
+             prevote and a precommit of each of 150 validators, one
+             tampered) into one window (one RLC program, one K1 + K14
+             over its 300 lanes, 900 submissions coalesced or cached,
+             every verdict ed25519_ref.verify's, the tampered precommit
+             rejected, the other 299 accepted with no verify of add_vote's
+             own, +2/3 precommits); make_commit() re-verified at the next
+             height with no launch; an equivocation raising
+             ErrVoteConflictingVotes and its DuplicateVoteEvidence
+             verified with no launch; one peer's votes behind six queued
+             blocksync windows (the seal advisory submits the first vote
+             window within 0.4 s, the consensus windows dispatch ahead,
+             launches exact, the latency ledger's p50 / p99); the same
+             votes paced through default_verifier at the default knobs
+             (flushes by path, per-vote p50 / p99); the host verify's time
+             a vote against a device window's at 1-300 votes (the
+             crossover, reported);
+ 12. engines the same entry points under each MSM engine configuration
              (the JAX package's flags, set on the port's modules):
              window_loop (K6), window_loop_blk2048 (K6 under
              COMETBFT_TPU_PALLAS_BLK=2048: 1, 8 and 16 rows per output
@@ -145,7 +167,7 @@ result):
              batch, each verdict the default engine's; each must launch
              exactly its configuration's kernels (and K1 + K14 for each
              localization);
- 12. kernels each kernel vs its plain version on the card, at the shapes
+ 13. kernels each kernel vs its plain version on the card, at the shapes
              phases 2-4 gave it, and K1-K4 and K14 also at the shapes
              of phase 8's sr25519 packs that those lack (the mixed
              commit's and the mixed batch's: N = 64 and 1,024, K14 at 50
@@ -191,7 +213,7 @@ result):
              key; and its first 4,096 lanes), verdict for verdict and
              accumulator for accumulator (frozen, coordinate for
              coordinate), and against ed25519_ref;
- 13. timing  each kernel's median time over runs of 10 launches back to
+ 14. timing  each kernel's median time over runs of 10 launches back to
              back and each plain version's time for one call (CUDA
              events; the kernels phase's comparison warmed it), with
              the bound the card could reach for the same
@@ -207,13 +229,14 @@ The launch counters are reset before phase 2 and read after phase 4
 (the default engine: every one of K1-K4 and K14 must launch there, none
 of K5-K8), reset before and read after phase 5's path (its comparisons
 with the plain version excluded), and reset before and read after each
-configuration of phase 11, reset before and read after phase 6's path
+configuration of phase 12, reset before and read after phase 6's path
 (its host-hash comparisons excluded), reset before and read after
 phase 7's path (its host-wait and order checks excluded), reset before
 and read after phases 8 and 9 (their oracle checks excluded), and reset
 before and read after phase 10 (its serial references and oracles
-excluded).  The signature-verdict cache is off in every phase but 9 and
-phase 10's cache step.
+excluded), and reset after phase 11's first pre-warm and read after its
+third step.  The signature-verdict cache is off in every phase but 9,
+phase 10's cache step and phase 11.
 Keys and messages come from a fixed seed; the RLC weights are drawn from
 `secrets`, as they are in use.
 """
@@ -313,7 +336,7 @@ MESH_SHARDS = (1, 2, 4)
 NVLINK_BYTES_PER_S = 450e9     # one direction, H100 SXM data sheet
 
 # the engine flags (ops/ed25519 USE_PALLAS_*, ops/cuda_msm WIN_GROUP, BLK) at
-# the JAX package's defaults, and each configuration of phase 11: its
+# the JAX package's defaults, and each configuration of phase 12: its
 # flags, the kernels it must launch (and no other), whether it also runs
 # the 8,192 batch
 DEFAULT_ENGINE = {"USE_PALLAS_MSM_MAJOR": True, "USE_PALLAS_MSM_LOOP": True,
@@ -475,8 +498,8 @@ def main() -> int:
     state = {}
     phases = [phase_build, phase_fixtures, phase_commit, phase_window,
               phase_batch, phase_mesh, phase_hash, phase_secp, phase_sr25519,
-              phase_sigcache, phase_pipeline, phase_engines, phase_kernels,
-              phase_timing]
+              phase_sigcache, phase_pipeline, phase_votes, phase_engines,
+              phase_kernels, phase_timing]
     ctx = mp.get_context("spawn")
     with ctx.Pool(os.cpu_count() or 1) as pool:
         state["pool"] = pool
@@ -636,7 +659,7 @@ def phase_fixtures(state, torch):
     b_sigs = _pool_map(pool, _sign, list(zip(b_seeds, b_msgs)))
     sign_s = time.perf_counter() - t0
     state.update(vals=vals, commits=commits, heights=heights[:WINDOW],
-                 batch=(b_pubs, b_msgs, b_sigs), ref=ref)
+                 batch=(b_pubs, b_msgs, b_sigs), ref=ref, seed_of=seed_of)
     return {"validators": N_VALS, "commits": len(commits),
             "commit_signatures": len(jobs), "batch_signatures": N_BATCH,
             "signing_seconds": sign_s}
@@ -3180,7 +3203,499 @@ def phase_pipeline(state, torch):
     return out
 
 
-# -- phase 11: the engine configurations -------------------------------------
+# -- phase 11: the consensus vote path -----------------------------------------
+
+VOTE_HEIGHT = 2000             # the flood's height H
+VOTE_PEERS = 4                 # peers gossiping every vote
+VOTE_TAMPERED = 7              # validator whose precommit is tampered
+VOTE_EQUIVOCATOR = 3           # validator that signs a second prevote
+VOTE_FLOOD_FLUSH_S = 1.0       # step 1: the flood forms one window
+VOTE_QOS_FLUSH_S = 0.8         # step 3's flush interval
+VOTE_QOS_SUBMIT_S = 0.4        # step 3: the window's submit after its first vote
+VOTE_QOS_DEPTH = 16            # step 3's pipeline: six bulk windows and the votes'
+VOTE_PACE_S = 0.2              # step 4: each peer's 300 votes over 200 ms
+VOTE_CROSS_SIZES = (1, 2, 4, 8, 32, 64, 150, 256, 300)
+VOTE_CROSS_REPS = 5
+VOTE_HOST_SAMPLES = 32
+
+
+def _vote_fixtures(state):
+    """The flood's 300 votes (a prevote and a precommit of each of the
+    150 validators for one block at VOTE_HEIGHT, round 0), signed in the
+    pool, with VOTE_TAMPERED's precommit tampered, and VOTE_EQUIVOCATOR's
+    second prevote for another block."""
+    from cometbft_tpu_torch.types import block
+    from cometbft_tpu_torch.types.timestamp import Timestamp
+    from cometbft_tpu_torch.types.vote import (PRECOMMIT_TYPE, PREVOTE_TYPE,
+                                               Vote)
+
+    vals, seed_of = state["vals"], state["seed_of"]
+    bid = block.BlockID(_seed("vote-block", VOTE_HEIGHT), block.PartSetHeader(
+        1, _seed("vote-parts", VOTE_HEIGHT)))
+    other = block.BlockID(_seed("vote-other", VOTE_HEIGHT),
+                          block.PartSetHeader(1, _seed("vote-other-parts",
+                                                       VOTE_HEIGHT)))
+    votes = []
+    for t in (PREVOTE_TYPE, PRECOMMIT_TYPE):
+        for i, v in enumerate(vals.validators):
+            votes.append(Vote(type=t, height=VOTE_HEIGHT, round=0,
+                              block_id=bid, timestamp=Timestamp(
+                                  1_700_100_000 + t, 1000 * i + 7),
+                              validator_address=v.address, validator_index=i))
+    eq_val = vals.validators[VOTE_EQUIVOCATOR]
+    twin = Vote(type=PREVOTE_TYPE, height=VOTE_HEIGHT, round=0,
+                block_id=other, timestamp=Timestamp(1_700_100_050, 3),
+                validator_address=eq_val.address,
+                validator_index=VOTE_EQUIVOCATOR)
+    sbs = [v.sign_bytes(CHAIN_ID) for v in votes + [twin]]
+    sigs = _pool_map(state["pool"], _sign, [
+        (seed_of[v.validator_address], sb)
+        for v, sb in zip(votes + [twin], sbs)])
+    for v, sig in zip(votes + [twin], sigs):
+        v.signature = sig
+    pks = [vals.validators[v.validator_index].pub_key.bytes() for v in votes]
+    clean = list(zip(pks, sbs[:-1], sigs[:-1]))
+    bad = N_VALS + VOTE_TAMPERED
+    s = votes[bad].signature
+    votes[bad].signature = s[:6] + bytes([s[6] ^ 1]) + s[7:]
+    flood = [(pk, sb, v.signature) for pk, sb, v in zip(pks, sbs, votes)]
+    want = _oracle(state, tuple(zip(*flood)))
+    check([i for i, w in enumerate(want) if not w] == [bad],
+          f"vote fixtures: the oracle rejects {want.count(False)} votes")
+    return {"bid": bid, "votes": votes, "twin": twin, "flood": flood,
+            "clean": clean, "want": want, "bad": bad}
+
+
+def _gossip(stream, fx, peers, order_seed, pace_s=0.0):
+    """Each peer thread gossips every vote in its own seeded order, as a
+    consensus reactor's receive routine does (the JAX package's
+    consensus/reactor.py _preverify_vote without its p2p and state
+    locks): submit the triple, attach the Preverified.  Returns each
+    peer's received votes, the submit times and the seconds until every
+    vote future resolved."""
+    import dataclasses
+    import random
+    import threading
+
+    from cometbft_tpu_torch.crypto.votestream import Preverified
+
+    n = len(fx["votes"])
+    orders = [random.Random(f"{order_seed}-{p}").sample(range(n), n)
+              for p in range(peers)]
+    received = [[] for _ in range(peers)]
+    stamps = []
+    barrier = threading.Barrier(peers)
+
+    def peer(p):
+        barrier.wait()
+        for k, idx in enumerate(orders[p]):
+            v = dataclasses.replace(fx["votes"][idx])
+            pk, sb, sig = fx["flood"][idx]
+            stamps.append(time.perf_counter())
+            fut = stream.submit(pk, sb, sig)
+            v.preverified = Preverified(pk, sb, sig, fut)
+            received[p].append((idx, v, fut))
+            if pace_s:
+                time.sleep(pace_s / n)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=peer, args=(p,))
+               for p in range(peers)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    for rec in received:
+        for _, _, fut in rec:
+            fut.result(timeout=600)
+    return received, min(stamps), time.perf_counter() - t0
+
+
+def _consensus_state(fx, received, vals):
+    """The consensus state thread, after the verifier: every received
+    vote into its round's VoteSet.  Returns the two sets, each vote's
+    first outcome and the number of signature verifies that add_vote
+    made itself (crypto/batch.safe_verify calls)."""
+    from cometbft_tpu_torch.crypto import batch as cb
+    from cometbft_tpu_torch.types import vote_set as vs_mod
+    from cometbft_tpu_torch.types.vote import PRECOMMIT_TYPE, PREVOTE_TYPE
+
+    sets = {t: vs_mod.VoteSet(CHAIN_ID, VOTE_HEIGHT, 0, t, vals)
+            for t in (PREVOTE_TYPE, PRECOMMIT_TYPE)}
+    first = {}
+    real, inline = cb.safe_verify, []
+    cb.safe_verify = lambda *a: inline.append(a) or real(*a)
+    try:
+        for rec in received:
+            for idx, v, _ in rec:
+                try:
+                    out = sets[v.type].add_vote(v)
+                except vs_mod.VoteSetError as e:
+                    out = type(e).__name__
+                first.setdefault(idx, out)
+    finally:
+        cb.safe_verify = real
+    return sets, [first[i] for i in range(len(fx["votes"]))], len(inline)
+
+
+def _check_verdicts(fx, received, label):
+    for rec in received:
+        for idx, _, fut in rec:
+            check(fut.result(timeout=0) == fx["want"][idx],
+                  f"{label}: vote {idx} verdict {fut.result(timeout=0)}, "
+                  f"the oracle's {fx['want'][idx]}")
+
+
+def _check_outcomes(fx, sets, outcomes, label):
+    from cometbft_tpu_torch.types.vote import PRECOMMIT_TYPE
+
+    want = ["ErrVoteInvalidSignature" if i == fx["bad"] else True
+            for i in range(len(outcomes))]
+    check(outcomes == want, f"{label}: add_vote outcomes "
+          f"{[(i, o) for i, (o, w) in enumerate(zip(outcomes, want)) if o != w]}")
+    com = sets[PRECOMMIT_TYPE]
+    check(com.has_two_thirds_majority() and
+          com.bit_array().num_true() == N_VALS - 1,
+          f"{label}: {com.bit_array().num_true()} precommits, +2/3 "
+          f"{com.has_two_thirds_majority()}")
+
+
+def _pct(xs, q):
+    import numpy as np
+    return float(np.percentile(np.asarray(xs), q)) if xs else None
+
+
+def _lat_split(rows):
+    """Per consumer: rows, p50 and p99 of the wall in ms."""
+    out = {}
+    for c in sorted({r["consumer"] for r in rows}):
+        w = [r["wall"] * 1e3 for r in rows if r["consumer"] == c]
+        out[c] = {"rows": len(w), "p50_ms": _pct(w, 50), "p99_ms": _pct(w, 99)}
+    return out
+
+
+def phase_votes(state, torch):
+    """The consensus vote path on the card: crypto/votestream's
+    StreamingVerifier feeding VerifyPipeline's consensus lane, what it
+    verifies consumed by types/vote_set.VoteSet (the exact-triple
+    Preverified contract), the commit it makes checked at the next
+    height, and duplicate-vote evidence, with the verdict cache on
+    (reset between steps; off again after the phase):
+    1. flood: four peer threads gossip all 300 votes of height H (a
+       prevote and a precommit of each of the 150 validators, one
+       precommit tampered): 1,200 submissions to a stream with a 1 s
+       flush interval and the default device threshold (256) form one
+       window; its launches are one RLC program and one K1 + K14 over
+       its 300 live lanes; 900 submissions coalesce or hit the cache;
+       every verdict is ed25519_ref.verify's; add_vote rejects the
+       tampered precommit and accepts the other 299 with no verify of
+       its own; the 149 precommits reach +2/3;
+    2. commit: make_commit(); verify_commit_light of it at H + 1
+       launches nothing (every signature a cache hit); a second prevote
+       of one validator for another block makes add_vote raise
+       ErrVoteConflictingVotes (after verifying it inline), and
+       verify_duplicate_vote of the DuplicateVoteEvidence passes with no
+       launch and no verify (both votes cache hits);
+    3. qos: six of the window phase's 4,848-signature blocksync windows
+       queued on a pipeline of depth 16, then one peer's 300 votes
+       through a stream with a 0.8 s flush interval and device
+       threshold 1 (a sealed flush of any size goes to the card): the
+       seal advisory submits its first window within 0.4 s of its first
+       vote, each consensus window dispatches ahead of blocksync
+       windows queued before it (EV_SCHED_PREEMPT), the launches are
+       exact, and the latency ledger's consensus and blocksync p50 /
+       p99 are reported;
+    4. defaults: the 300 votes paced over 200 ms from four peers
+       through default_verifier(device) at the default knobs (2 ms,
+       256): verdicts checked; flushes and votes by path, wall time
+       and per-vote p50 / p99 reported;
+    5. crossover: the host verify's time a vote (median of 32) and the
+       wall time of one device window through the default pipeline at
+       1 to 300 votes (median of 5, cache off).
+    The counts are set to 0 after the first stream's pre-warm (its
+    seconds and launches reported apart) and read after step 3; steps
+    4-5 are measurements outside the count.  Steps 1-3 fail on a host,
+    drain or error path, a device fallback, a KernelBuildError or a
+    vote future that raises."""
+    from cometbft_tpu_torch.crypto import dispatch as vd
+    from cometbft_tpu_torch.crypto import ed25519 as ed
+    from cometbft_tpu_torch.crypto import sigcache
+    from cometbft_tpu_torch.crypto import votestream as vs_mod
+    from cometbft_tpu_torch.evidence.verify import verify_duplicate_vote
+    from cometbft_tpu_torch.libs import flightrec, latledger
+    from cometbft_tpu_torch.types import validation as val
+    from cometbft_tpu_torch.types import vote_set as vset_mod
+    from cometbft_tpu_torch.types.evidence import DuplicateVoteEvidence
+    from cometbft_tpu_torch.types.timestamp import Timestamp
+    from cometbft_tpu_torch.types.vote import PRECOMMIT_TYPE, PREVOTE_TYPE
+
+    vals = state["vals"]
+    cache = ed._A_TABLE_CACHE
+    fx = _vote_fixtures(state)
+    n_votes = len(fx["votes"])
+    out = {"votes": n_votes, "validators": N_VALS}
+
+    def clean_stream(sv, label):
+        check(sv.device_fallbacks == sv.build_errors == 0 and
+              sv.warm_error is None and sv.path_flushes["host"] == 0 and
+              set(sv.window_paths) <= {"device"},
+              f"{label}: fallbacks {sv.device_fallbacks}, build errors "
+              f"{sv.build_errors}, warm error {sv.warm_error!r}, flushes "
+              f"{dict(sv.path_flushes)}, windows {dict(sv.window_paths)}")
+
+    sigcache.set_enabled(True)
+    try:
+        # 1. the flood, one window through the default pipeline
+        t0 = time.perf_counter()
+        w0 = _counts()
+        sv = vs_mod.StreamingVerifier(flush_interval=VOTE_FLOOD_FLUSH_S,
+                                      device=DEVICE)
+        sv.start()
+        check(sv.warmed.wait(timeout=900), "the pre-warm did not finish")
+        out["prewarm"] = {"seconds": time.perf_counter() - t0,
+                          "launches": _launched(w0, _counts()),
+                          "error": repr(sv.warm_error)}
+        _zero_counts()                  # the vote path starts here
+        sigcache.reset()
+        before, h0 = _counts(), cache.hits
+        try:
+            with _persig(torch) as persig:
+                received, _, flood_s = _gossip(sv, fx, VOTE_PEERS, "flood")
+        finally:
+            sv.stop()
+        launched = _launched(before, _counts())
+        clean_stream(sv, "flood")
+        _check_verdicts(fx, received, "flood")
+        check(sv.path_flushes == {"device": 1} and
+              sv.path_votes["device"] == n_votes,
+              f"flood: flushes {dict(sv.path_flushes)}, votes "
+              f"{dict(sv.path_votes)}, not one window of {n_votes}")
+        check(sv.coalesced + sv.cache_hits == (VOTE_PEERS - 1) * n_votes,
+              f"flood: {sv.coalesced} coalesced + {sv.cache_hits} cached")
+        _want_launches(launched, _merge(_rlc_want(cache.hits - h0, 1),
+                                        PERSIG_LAUNCHES), "flood")
+        _check_persig(persig, "flood", n_votes)
+        sets, outcomes, inline = _consensus_state(fx, received, vals)
+        _check_outcomes(fx, sets, outcomes, "flood")
+        check(inline == 0, f"flood: add_vote verified {inline} votes itself")
+        out["flood"] = {"submissions": VOTE_PEERS * n_votes,
+                        "coalesced": sv.coalesced,
+                        "cache_hits": sv.cache_hits, "seconds": flood_s,
+                        "launches": launched,
+                        "localization_width": persig.widths}
+
+        # 2. the commit at H + 1, and duplicate-vote evidence
+        commit = sets[PRECOMMIT_TYPE].make_commit()
+        check(sum(c.for_block() for c in commit.signatures) == N_VALS - 1,
+              "commit: not 149 commit signatures")
+        before, st0 = _counts(), sigcache.cache().stats()
+        val.verify_commit_light(CHAIN_ID, vals, fx["bid"], VOTE_HEIGHT,
+                                commit, device=DEVICE)
+        st1 = sigcache.cache().stats()
+        check(_launched(before, _counts()) == {} and
+              st1["misses"] == st0["misses"],
+              f"commit: launched {_launched(before, _counts())}, "
+              f"{st1['misses'] - st0['misses']} cache misses")
+        twin = fx["twin"]
+        verifies = []
+        real_verify = ed.PubKey.verify_signature
+
+        def counted(self, msg, sig):
+            verifies.append(msg)
+            return real_verify(self, msg, sig)
+        ed.PubKey.verify_signature = counted
+        try:
+            try:
+                sets[PREVOTE_TYPE].add_vote(twin)
+                raise PhaseError("equivocation: add_vote accepted the twin")
+            except vset_mod.ErrVoteConflictingVotes as e:
+                conflict = e
+            inline = len(verifies)
+            ev = DuplicateVoteEvidence.new(
+                conflict.vote_a, conflict.vote_b,
+                Timestamp(1_700_100_100, 0), vals)
+            ev.validate_basic()
+            before, st0 = _counts(), sigcache.cache().stats()
+            verify_duplicate_vote(ev, CHAIN_ID, vals)
+            st1 = sigcache.cache().stats()
+        finally:
+            ed.PubKey.verify_signature = real_verify
+        check(inline == 1 and len(verifies) == 1 and
+              _launched(before, _counts()) == {} and
+              st1["hits"] - st0["hits"] == 2,
+              f"evidence: {inline} inline verifies, {len(verifies)} in all, "
+              f"launched {_launched(before, _counts())}, "
+              f"{st1['hits'] - st0['hits']} cache hits")
+        out["commit"] = {"signatures": len(commit.signatures),
+                         "commit_hash": commit.hash().hex(),
+                         "evidence_hash": ev.hash().hex(),
+                         "evidence_bytes": len(ev.to_proto())}
+
+        # 3. QoS: the votes behind six queued blocksync windows
+        sigcache.reset()
+        commits = [(h, state["commits"][h]) for h in state["heights"]]
+        batches = [_collect(state, val, commits)
+                   for _ in range(PIPE_QOS_BULK)]
+        # SLO burns stay in the recorder: a sustained burn would dump the
+        # whole ring to the log at every later row
+        rec = flightrec.FlightRecorder()
+        ledger = latledger.LatLedgerRecorder(slo=latledger.SLOTracker(
+            on_burn=lambda *a: None))
+        flightrec.set_recorder(rec)
+        latledger.set_recorder(ledger)
+        before, h0 = _counts(), cache.hits
+        windows = []
+        try:
+            with _persig(torch) as persig, \
+                    vd.VerifyPipeline(depth=VOTE_QOS_DEPTH,
+                                      device=DEVICE) as pipe:
+                real_submit = pipe.submit
+
+                def submit(items, **kw):
+                    items = list(items)
+                    h = real_submit(items, **kw)
+                    if kw.get("subsystem") == "consensus":
+                        windows.append((time.perf_counter(), items, h))
+                    return h
+                pipe.submit = submit
+                waits = [b.verify_async(pipe, subsystem="blocksync")
+                         for b in batches]
+                sv = vs_mod.StreamingVerifier(
+                    flush_interval=VOTE_QOS_FLUSH_S, device_threshold=1,
+                    pipeline=pipe, device=DEVICE, warmup=False)
+                sv.start()
+                try:
+                    received, first_at, qos_s = _gossip(sv, fx, 1, "qos")
+                finally:
+                    sv.stop()
+                for w in waits:
+                    w.wait(timeout=600)
+                snap = pipe.scheduler_snapshot()
+            _clean_pipe(pipe, "qos")
+        finally:
+            flightrec.set_recorder(None)
+            latledger.set_recorder(None)
+        launched = _launched(before, _counts())
+        clean_stream(sv, "qos")
+        _check_verdicts(fx, received, "qos")
+        check(windows and windows[0][0] - first_at < VOTE_QOS_SUBMIT_S,
+              f"qos: the first vote window was submitted "
+              f"{windows[0][0] - first_at if windows else None} s after its "
+              f"first vote")
+        bulk = [w.handle for w in waits]
+        votes_h = [h for _, _, h in windows]
+        check(all(x.path == "device" for x in bulk + votes_h),
+              f"qos paths {[x.path for x in bulk + votes_h]}")
+        dispatched = {id(x): x.lat[0].stamps["dispatch"]
+                      for x in bulk + votes_h}
+        submitted = {id(x): x.submitted_at for x in bulk + votes_h}
+        overtook = [sum(1 for b in bulk if submitted[id(b)] < submitted[id(x)]
+                        and dispatched[id(b)] > dispatched[id(x)])
+                    for x in votes_h]
+        pre = [e for e in rec.events()
+               if e["kind"] == flightrec.EV_SCHED_PREEMPT
+               and e["lane"] == "consensus"]
+        sizes = [len(items) for _, items, _ in windows]
+        order = sorted((dispatched[id(x)], "votes" if x in votes_h else "bulk",
+                        submitted[id(x)]) for x in bulk + votes_h)
+        check(overtook[0] >= 1 and pre, f"qos: the consensus windows "
+              f"{sizes} overtook {overtook} queued blocksync windows, "
+              f"{len(pre)} preempt events; (dispatch, kind, submit): "
+              f"{order}")
+        n_rlc = PIPE_QOS_BULK + sum(1 for n in sizes if n >= 2)
+        n_persig = sum(1 for n in sizes if n == 1) + sum(
+            1 for n, (_, items, _) in zip(sizes, windows)
+            if n >= 2 and fx["flood"][fx["bad"]] in items)
+        _want_launches(launched, _merge(_rlc_want(cache.hits - h0, n_rlc),
+                                        *[PERSIG_LAUNCHES] * n_persig), "qos")
+        check(persig.calls == n_persig and sum(sizes) == n_votes,
+              f"qos: {persig.calls} localizations, windows {sizes}")
+        out["qos"] = {"windows": sizes,
+                      "first_window_after_s": windows[0][0] - first_at,
+                      "overtook": overtook, "preempt_events": len(pre),
+                      "seconds": qos_s, "launches": launched,
+                      "latency": _lat_split(ledger.rows()),
+                      "snapshot": snap}
+        state["votes_launches"] = _counts()
+
+        # 4. the default knobs
+        sigcache.reset()
+        ledger = latledger.LatLedgerRecorder()
+        dv = vs_mod.default_verifier(device=DEVICE)
+        check(dv.flush_interval == vs_mod.FLUSH_INTERVAL_S and
+              dv.device_threshold == vs_mod.DEVICE_THRESHOLD,
+              "the default verifier's knobs")
+        t0 = time.perf_counter()
+        check(dv.warmed.wait(timeout=900) and dv.warm_error is None,
+              f"default pre-warm: {dv.warm_error!r}")
+        warm_s = time.perf_counter() - t0
+        sigcache.reset()
+        latledger.set_recorder(ledger)
+        try:
+            received, _, paced_s = _gossip(dv, fx, VOTE_PEERS, "paced",
+                                           pace_s=VOTE_PACE_S)
+        finally:
+            latledger.set_recorder(None)
+        _check_verdicts(fx, received, "defaults")
+        sets, outcomes, _ = _consensus_state(fx, received, vals)
+        _check_outcomes(fx, sets, outcomes, "defaults")
+        check(dv.device_fallbacks == dv.build_errors == 0,
+              "defaults: a device fallback or build error")
+        walls = [r["wall"] * 1e3 for r in ledger.rows()
+                 if r["consumer"] == "consensus"]
+        out["defaults"] = {
+            "flush_ms": dv.flush_interval * 1e3,
+            "device_threshold": dv.device_threshold,
+            "prewarm_seconds": warm_s, "seconds": paced_s,
+            "flushes_by_path": dict(dv.path_flushes),
+            "votes_by_path": dict(dv.path_votes),
+            "windows_by_path": dict(dv.window_paths),
+            "coalesced": dv.coalesced, "cache_hits": dv.cache_hits,
+            "vote_p50_ms": _pct(walls, 50), "vote_p99_ms": _pct(walls, 99),
+            "rows": len(walls)}
+        dv.stop()
+    finally:
+        sigcache.set_enabled(False)
+        sigcache.reset()
+
+    # 5. the host / device crossover, cache off
+    host_ms = []
+    for pk, sb, sig in fx["clean"][:VOTE_HOST_SAMPLES]:
+        t0 = time.perf_counter()
+        ok = vs_mod._host_verify(pk, sb, sig)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        check(ok, "crossover: a clean vote rejected on the host")
+    pipe = vd.default_pipeline(DEVICE)
+    device_ms = {}
+    for n in VOTE_CROSS_SIZES:
+        ts = []
+        for _ in range(VOTE_CROSS_REPS):
+            t0 = time.perf_counter()
+            h = pipe.submit(fx["clean"][:n], subsystem="consensus",
+                            device_threshold=1)
+            ok, _ = h.result(timeout=600)
+            ts.append((time.perf_counter() - t0) * 1e3)
+            check(ok and h.path == "device",
+                  f"crossover: window of {n} {h.path} {ok}")
+        device_ms[n] = _pct(ts, 50)
+    pipe.stop()
+    host_vote_ms = _pct(host_ms, 50)
+    cross = next((n for n in VOTE_CROSS_SIZES
+                  if device_ms[n] < n * host_vote_ms), None)
+    out["crossover"] = {"host_ms_per_vote": host_vote_ms,
+                        "device_window_ms": device_ms,
+                        "device_ms_per_vote": {n: device_ms[n] / n
+                                               for n in VOTE_CROSS_SIZES},
+                        "first_size_device_wins": cross}
+    launched = {k for k, v in state["votes_launches"].items() if v}
+    check(launched == DEFAULT_KERNELS,
+          f"the vote path launched {sorted(launched)}")
+    out["launches"] = state["votes_launches"]
+    _zero_counts()
+    return out
+
+
+# -- phase 12: the engine configurations -------------------------------------
 
 def phase_engines(state, torch):
     """Each configuration drives the commit, the window and (where
@@ -3230,7 +3745,7 @@ def phase_engines(state, torch):
     return {"configurations": rows}
 
 
-# -- phase 12: kernel vs plain -----------------------------------------------
+# -- phase 13: kernel vs plain -----------------------------------------------
 
 def _hostile_words(state, torch):
     """K1 input at W = 8192: the phase-4 public keys (two of them
@@ -4244,7 +4759,7 @@ def _raw_secp(torch, name, args, step=None):
     return launch
 
 
-# -- phase 13: timing -------------------------------------------------------
+# -- phase 14: timing -------------------------------------------------------
 
 def _time(torch, fn, args, reps, inner=1, warm=True):
     """Median over reps of the CUDA-event time of `inner` calls made back
@@ -4533,6 +5048,7 @@ def phase_timing(state, torch):
                    "sr25519": state["sr25519_launches"][name],
                    "sigcache": state["sigcache_launches"][name],
                    "pipeline": state["pipeline_launches"][name],
+                   "votes": state["votes_launches"][name],
                    **{cfg: c[name]
                       for cfg, c in state["engine_launches"].items()}}
         if name in DEFAULT_KERNELS:
@@ -4544,7 +5060,8 @@ def phase_timing(state, torch):
         else:
             launches = sum(v for k, v in by_path.items()
                            if k not in ("main", "mesh", "hash", "secp",
-                                        "sr25519", "sigcache", "pipeline"))
+                                        "sr25519", "sigcache", "pipeline",
+                                        "votes"))
         source, replaces = KERNELS[name]
         rows.append({"name": name, "route": "cuda", "source": CSRC + source,
                      "replaces": replaces, "launches": launches,

@@ -131,19 +131,6 @@ def _key_type(pk) -> str:
     return pk.type() if hasattr(pk, "type") else "ed25519"
 
 
-def _host_verify(pk: bytes, msg: bytes, sig: bytes) -> bool:
-    """The JAX package's vote-stream host verify (crypto/votestream.py),
-    kept here until the vote stream is ported."""
-    from .ed25519 import PUBKEY_SIZE, PubKey
-
-    if len(pk) != PUBKEY_SIZE:
-        return False
-    try:
-        return PubKey(pk).verify_signature(msg, sig)
-    except Exception:
-        return False
-
-
 def _verify_one(pk, msg: bytes, sig: bytes) -> bool:
     """Host single-verify for any item shape the pipeline accepts
     (raw 32-byte ed25519 pubkeys or key objects); backend errors map
@@ -152,6 +139,8 @@ def _verify_one(pk, msg: bytes, sig: bytes) -> bool:
 
     if hasattr(pk, "verify_signature"):
         return cb.safe_verify(pk, msg, sig)
+    from .votestream import _host_verify
+
     return _host_verify(_pk_bytes(pk), msg, sig)
 
 

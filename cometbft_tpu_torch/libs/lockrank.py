@@ -34,10 +34,14 @@ from concurrent.futures import Future
 
 # lower rank = acquired first; the JAX package's ranks for the same names
 LOCK_RANKS: dict[str, int] = {
-    # verify plane: the default-pipeline guard, then the pipeline's
-    # condition variable (submitters, staging, dispatch loops and the
-    # watchdog share it), then what the pipeline consults under it
+    # verify plane: the default-instance guards, the vote stream's
+    # condition variable (its worker polls the pipeline's QoS seal
+    # advisory under it), then the pipeline's condition variable
+    # (submitters, staging, dispatch loops and the watchdog share it),
+    # then what the pipeline consults under it
     "dispatch.default": 370,
+    "votestream.default": 380,
+    "votestream.cv": 390,
     "dispatch.cv": 400,
     "devhealth.registry": 420,
     "ed25519.atable": 430,
@@ -58,7 +62,7 @@ LOCK_RANKS: dict[str, int] = {
 }
 
 MULTI_OK = frozenset({
-    "dispatch.cv", "devhealth.registry", "sigcache.stripe",
+    "votestream.cv", "dispatch.cv", "devhealth.registry", "sigcache.stripe",
     "devprof.ring", "flightrec.ring", "tracetl.ring", "trace.stage",
     "metrics.registry", "metrics.series", "service.lifecycle",
 })
@@ -512,7 +516,8 @@ def sanctioned_threads() -> set:
 
     out: set = set()
     disp = sys.modules.get("cometbft_tpu_torch.crypto.dispatch")
-    for mod in (disp,):
+    vs = sys.modules.get("cometbft_tpu_torch.crypto.votestream")
+    for mod in (disp, vs):
         d = getattr(mod, "_default", None) if mod is not None else None
         if d is None:
             continue

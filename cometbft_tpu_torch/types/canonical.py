@@ -1,11 +1,17 @@
-"""Canonical vote sign-bytes (the port's copy of the vote half of
-`cometbft_tpu.types.canonical`).
+"""Canonical sign-bytes (the port's copy of
+`cometbft_tpu.types.canonical`, without the privval timestamp split).
 
 These bytes are what validators sign — byte-for-byte compatibility with
-CometBFT is consensus-critical.  CanonicalVote layout (CometBFT
-proto/cometbft/types/v1/canonical.proto): type=1 varint, height=2
-sfixed64, round=3 sfixed64, block_id=4 (nullable: omitted for nil votes),
-timestamp=5 (always), chain_id=6; the result is length-delimited.
+CometBFT is consensus-critical.  Layouts from CometBFT
+proto/cometbft/types/v1/canonical.proto:
+- CanonicalVote: type=1 varint, height=2 sfixed64, round=3 sfixed64,
+  block_id=4 (nullable: omitted for nil votes), timestamp=5 (always),
+  chain_id=6.
+- CanonicalProposal: type=1, height=2 sfixed64, round=3 sfixed64,
+  pol_round=4 varint, block_id=5, timestamp=6, chain_id=7.
+- CanonicalVoteExtension: extension=1, height=2 sfixed64,
+  round=3 sfixed64, chain_id=4.
+The result is length-delimited (varint size prefix).
 """
 
 from __future__ import annotations
@@ -15,7 +21,9 @@ import numpy as np
 from ..libs import protowire as pw
 from .timestamp import Timestamp
 
+PREVOTE = 1
 PRECOMMIT = 2
+PROPOSAL = 32
 
 
 def canonical_block_id(block_id) -> bytes | None:
@@ -83,3 +91,27 @@ def vote_sign_bytes_columnar(chain_id: str, msg_type: int, height: int,
         for j, i in enumerate(idxs):
             out[i] = rows[j * row_len:(j + 1) * row_len]
     return out
+
+
+def proposal_sign_bytes(chain_id: str, height: int, round_: int,
+                        pol_round: int, block_id,
+                        timestamp: Timestamp) -> bytes:
+    w = (pw.Writer()
+         .int_field(1, PROPOSAL)
+         .sfixed64_field(2, height)
+         .sfixed64_field(3, round_)
+         .int_field(4, pol_round)
+         .optional_message_field(5, canonical_block_id(block_id))
+         .message_field(6, timestamp.to_proto())
+         .string_field(7, chain_id))
+    return pw.marshal_delimited(w.bytes())
+
+
+def vote_extension_sign_bytes(chain_id: str, height: int, round_: int,
+                              extension: bytes) -> bytes:
+    w = (pw.Writer()
+         .bytes_field(1, extension)
+         .sfixed64_field(2, height)
+         .sfixed64_field(3, round_)
+         .string_field(4, chain_id))
+    return pw.marshal_delimited(w.bytes())

@@ -1,5 +1,6 @@
 """Nanosecond-precision timestamps (the port's copy of
-`cometbft_tpu.types.timestamp`, trimmed to what sign-bytes need).
+`cometbft_tpu.types.timestamp`, trimmed to what sign-bytes, votes and
+evidence need).
 
 Go's time.Time carries nanoseconds; consensus signs its proto form
 (google.protobuf.Timestamp: seconds + nanos), so timestamps stay integer
@@ -9,6 +10,7 @@ Go's time.Time carries nanoseconds; consensus signs its proto form
 from __future__ import annotations
 
 from dataclasses import dataclass
+from datetime import datetime, timezone
 
 from ..libs import protowire as pw
 
@@ -32,6 +34,24 @@ class Timestamp:
     def to_proto(self) -> bytes:
         return pw.encode_timestamp(self.seconds, self.nanos)
 
+    @staticmethod
+    def from_proto(payload: bytes) -> "Timestamp":
+        s, n = pw.decode_timestamp(payload)
+        return Timestamp(s, n)
+
     def add_ns(self, delta_ns: int) -> "Timestamp":
         total = self.seconds * 1_000_000_000 + self.nanos + delta_ns
         return Timestamp(total // 1_000_000_000, total % 1_000_000_000)
+
+    def diff_ns(self, other: "Timestamp") -> int:
+        return ((self.seconds - other.seconds) * 1_000_000_000
+                + (self.nanos - other.nanos))
+
+    # RFC3339 for JSON interop (CometBFT types/canonical.go TimeFormat)
+    def rfc3339(self) -> str:
+        dt = datetime.fromtimestamp(self.seconds, tz=timezone.utc)
+        base = dt.strftime("%Y-%m-%dT%H:%M:%S")
+        if self.nanos:
+            frac = f"{self.nanos:09d}".rstrip("0")
+            return f"{base}.{frac}Z"
+        return base + "Z"

@@ -66,6 +66,12 @@ class ValidatorSet:
     def size(self) -> int:
         return len(self.validators)
 
+    def get_by_index(self, index: int):
+        if index < 0 or index >= len(self.validators):
+            return None, None
+        v = self.validators[index]
+        return v.address, v
+
     def get_by_address(self, address: bytes):
         i = self._addr_index.get(address, -1)
         if i < 0:
