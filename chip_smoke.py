@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's commit-verification paths on one NVIDIA
 card (Ed25519 in each of its MSM engine configurations, the device-hash
-route, secp256k1 and mixed-key commits, the verify pipeline and the
-consensus vote stream), and hold each of its CUDA
+route, secp256k1 and mixed-key commits, the verify pipeline, the
+consensus vote stream and the light client), and hold each of its CUDA
 kernels against its plain torch version.  Every per-signature
 localization of an Ed25519 reject (ops/ed25519.verify_kernel) must launch
 exactly one K1 and one K14, on one device over the live signatures.
@@ -154,7 +154,23 @@ result):
              (flushes by path, per-vote p50 / p99); the host verify's time
              a vote against a device window's at 1-300 votes (the
              crossover, reported);
- 12. engines the same entry points under each MSM engine configuration
+ 12. light   the light client (light/client.py) over 150 validators and
+             heights 1-193 (BASELINE's 10,000-header sync cut to 193; 60
+             of the root's validators replaced at height 66 and 60 more
+             at 130, so 30 remain at 193, under the 1/3 trust level),
+             signed in the pool: sequential sync 1 -> 193 in four
+             48-header windows on a VerifyPipeline of depth 2 (one RLC
+             program a window, the latency ledger's stages a window),
+             the same serial in one 192-header window, skipping sync
+             (the bisection's hops, two RLC programs a verified hop, none
+             for a hop refused on trust), backwards 193 -> 100 (no
+             launch), a tampered signature at height 150 (the error names
+             it; one K1 + K14 over the window's 4,848 lanes; the store
+             holds the root alone) and a witness serving a lunatic fork
+             from height 191 (ErrLightClientAttack, common height 190,
+             150 byzantine validators, each side sent the other's
+             evidence); headers/s for the three forward syncs;
+ 13. engines the same entry points under each MSM engine configuration
              (the JAX package's flags, set on the port's modules):
              window_loop (K6), window_loop_blk2048 (K6 under
              COMETBFT_TPU_PALLAS_BLK=2048: 1, 8 and 16 rows per output
@@ -167,7 +183,7 @@ result):
              batch, each verdict the default engine's; each must launch
              exactly its configuration's kernels (and K1 + K14 for each
              localization);
- 13. kernels each kernel vs its plain version on the card, at the shapes
+ 14. kernels each kernel vs its plain version on the card, at the shapes
              phases 2-4 gave it, and K1-K4 and K14 also at the shapes
              of phase 8's sr25519 packs that those lack (the mixed
              commit's and the mixed batch's: N = 64 and 1,024, K14 at 50
@@ -213,7 +229,7 @@ result):
              key; and its first 4,096 lanes), verdict for verdict and
              accumulator for accumulator (frozen, coordinate for
              coordinate), and against ed25519_ref;
- 14. timing  each kernel's median time over runs of 10 launches back to
+ 15. timing  each kernel's median time over runs of 10 launches back to
              back and each plain version's time for one call (CUDA
              events; the kernels phase's comparison warmed it), with
              the bound the card could reach for the same
@@ -229,14 +245,15 @@ The launch counters are reset before phase 2 and read after phase 4
 (the default engine: every one of K1-K4 and K14 must launch there, none
 of K5-K8), reset before and read after phase 5's path (its comparisons
 with the plain version excluded), and reset before and read after each
-configuration of phase 12, reset before and read after phase 6's path
+configuration of phase 13, reset before and read after phase 6's path
 (its host-hash comparisons excluded), reset before and read after
 phase 7's path (its host-wait and order checks excluded), reset before
 and read after phases 8 and 9 (their oracle checks excluded), and reset
 before and read after phase 10 (its serial references and oracles
-excluded), and reset after phase 11's first pre-warm and read after its
-third step.  The signature-verdict cache is off in every phase but 9,
-phase 10's cache step and phase 11.
+excluded), reset after phase 11's first pre-warm and read after its
+third step, and reset before and read after each step of phase 12.
+The signature-verdict cache is off in every phase but 9, phase 10's
+cache step and phase 11.
 Keys and messages come from a fixed seed; the RLC weights are drawn from
 `secrets`, as they are in use.
 """
@@ -336,7 +353,7 @@ MESH_SHARDS = (1, 2, 4)
 NVLINK_BYTES_PER_S = 450e9     # one direction, H100 SXM data sheet
 
 # the engine flags (ops/ed25519 USE_PALLAS_*, ops/cuda_msm WIN_GROUP, BLK) at
-# the JAX package's defaults, and each configuration of phase 12: its
+# the JAX package's defaults, and each configuration of phase 13: its
 # flags, the kernels it must launch (and no other), whether it also runs
 # the 8,192 batch
 DEFAULT_ENGINE = {"USE_PALLAS_MSM_MAJOR": True, "USE_PALLAS_MSM_LOOP": True,
@@ -498,7 +515,8 @@ def main() -> int:
     state = {}
     phases = [phase_build, phase_fixtures, phase_commit, phase_window,
               phase_batch, phase_mesh, phase_hash, phase_secp, phase_sr25519,
-              phase_sigcache, phase_pipeline, phase_votes, phase_engines,
+              phase_sigcache, phase_pipeline, phase_votes, phase_light,
+              phase_engines,
               phase_kernels, phase_timing]
     ctx = mp.get_context("spawn")
     with ctx.Pool(os.cpu_count() or 1) as pool:
@@ -3695,7 +3713,356 @@ def phase_votes(state, torch):
     return out
 
 
-# -- phase 12: the engine configurations -------------------------------------
+# -- phase 12: the light client ----------------------------------------------
+
+LIGHT_TOP = 193                # heights 1..193: BASELINE's 10,000 cut to 193
+LIGHT_ROTATIONS = ((66, 60), (130, 60))   # (height, root validators replaced)
+LIGHT_WINDOW = 48              # sequential_batch_size of step 1
+LIGHT_SERIAL_WINDOW = 192      # step 2: the whole range in one window
+LIGHT_BAD = 150                # step 5: the height whose commit is tampered
+LIGHT_BAD_SIG = 37             # ... at this signature, among the first 101
+LIGHT_FORK = 191               # step 6: the witness's fork starts here
+LIGHT_BACK = (193, 100)        # step 4: trusted root, target
+LIGHT_TRUST_NS = 14 * 24 * 3600 * 10**9
+LIGHT_T0 = 1_700_000_000
+
+
+def _light_sign_height(state, vals, h, bid, base_ts):
+    """The commit of height h under `vals`, every validator signing, its
+    signatures made in the pool."""
+    from cometbft_tpu_torch.types import block, canonical
+    from cometbft_tpu_torch.types.timestamp import Timestamp
+
+    rows = []
+    for i, v in enumerate(vals.validators):
+        ts = Timestamp(base_ts.seconds, 1000 * i + 7)
+        rows.append((v.address, ts, canonical.vote_sign_bytes(
+            CHAIN_ID, canonical.PRECOMMIT, h, 0, bid, ts)))
+    sigs = _pool_map(state["pool"], _sign, [
+        (state["light_seed_of"][a], sb) for a, _, sb in rows])
+    return block.Commit(h, 0, bid, [
+        block.CommitSig(block.BLOCK_ID_FLAG_COMMIT, a, ts, s)
+        for (a, ts, _), s in zip(rows, sigs)])
+
+
+def _light_chain(state, sets, start, top, prev, app_hash):
+    """Light blocks start..top over the snapshots `sets` (height -> set),
+    chained on `prev` (the block below start, or None), each commit
+    signed by its whole set."""
+    from cometbft_tpu_torch.light.types import LightBlock, SignedHeader
+    from cometbft_tpu_torch.types import block
+    from cometbft_tpu_torch.types.timestamp import Timestamp
+
+    empty = block.Data([]).hash()
+    out = {}
+    for h in range(start, top + 1):
+        vals = sets[h]
+        header = block.Header(
+            version=block.Consensus(11, 1), chain_id=CHAIN_ID, height=h,
+            time=Timestamp(LIGHT_T0 + h, 0),
+            last_block_id=(prev.signed_header.commit.block_id if prev
+                           else block.BlockID()),
+            last_commit_hash=(prev.signed_header.commit.hash() if prev
+                              else block.Commit().hash()),
+            data_hash=empty, validators_hash=vals.hash(device=DEVICE),
+            next_validators_hash=sets[min(h + 1, top)].hash(device=DEVICE),
+            consensus_hash=b"\x01" * 32, app_hash=app_hash(h),
+            last_results_hash=b"\x02" * 32, evidence_hash=empty,
+            proposer_address=vals.get_proposer().address)
+        bid = block.BlockID(header.hash(), block.PartSetHeader(
+            1, _seed("light-parts", h, header.app_hash)))
+        commit = _light_sign_height(state, vals, h, bid, header.time)
+        prev = out[h] = LightBlock(SignedHeader(header, commit), vals)
+    return out
+
+
+def _light_fixtures(state):
+    """Heights 1..LIGHT_TOP over the fixture phase's 150 validators: at
+    each LIGHT_ROTATIONS height that many of the root's validators leave
+    (power 0) and as many new ones join through update_with_change_set;
+    the proposer walks once a height.  Every validator signs every
+    commit.  Also the witness's lunatic fork from LIGHT_FORK on (a forged
+    app_hash, signed by the same keys)."""
+    from cometbft_tpu_torch.crypto import ed25519 as ed
+    from cometbft_tpu_torch.types.validator_set import (Validator,
+                                                        ValidatorSet)
+
+    t0 = time.perf_counter()
+    n_new = sum(k for _, k in LIGHT_ROTATIONS)
+    seeds = [_seed("light-validator", i) for i in range(n_new)]
+    pubs = _pool_map(state["pool"], _pubkeys, seeds)
+    fresh = [Validator(ed.PubKey(p), 10) for p in pubs]
+    seed_of = dict(state["seed_of"])
+    seed_of.update({v.address: s for v, s in zip(fresh, seeds)})
+    state["light_seed_of"] = seed_of
+    root = [v.address for v in state["vals"].validators]
+    vals = ValidatorSet.from_proto(state["vals"].to_proto())
+    sets, left, joined = {}, 0, 0
+    rotations = dict(LIGHT_ROTATIONS)
+    for h in range(1, LIGHT_TOP + 1):
+        if h in rotations:
+            k = rotations[h]
+            vals.update_with_change_set(
+                [Validator(vals.get_by_address(a)[1].pub_key, 0)
+                 for a in root[left:left + k]]
+                + [v.copy() for v in fresh[joined:joined + k]])
+            left, joined = left + k, joined + k
+        if h > 1:
+            vals.increment_proposer_priority(1)
+        sets[h] = ValidatorSet.from_proto(vals.to_proto())
+    keys_s = time.perf_counter() - t0
+    chain = _light_chain(state, sets, 1, LIGHT_TOP, None,
+                         lambda h: h.to_bytes(32, "big"))
+    fork = _light_chain(state, sets, LIGHT_FORK, LIGHT_TOP,
+                        chain[LIGHT_FORK - 1],
+                        lambda h: _seed("light-fork", h))
+    return {"chain": chain, "fork": fork, "sets": sets,
+            "signing_seconds": time.perf_counter() - t0,
+            "key_seconds": keys_s,
+            "signatures": sum(len(lb.signed_header.commit.signatures)
+                              for lb in list(chain.values())
+                              + list(fork.values()))}
+
+
+def phase_light(state, torch):
+    """The light client (light/client.py) on the card, the verdict cache
+    off: 150 ed25519 validators, heights 1..193 (BASELINE's 10,000-header
+    sync cut to 193), 60 of the root's validators replaced at height 66
+    and 60 more at 130 (30 of the root's 150 remain at 193: 20% of the
+    power, under the 1/3 trust level), the root at height 1:
+    1. sequential sync 1 -> 193, 48 headers a window on a
+       VerifyPipeline of depth 2: four windows of 48 x 101 = 4,848
+       signatures, one RLC program (K1-K4) each, the latency ledger's
+       stages per window, every height stored;
+    2. the same sync serial: pipeline_depth 1, one window of 192 headers
+       (19,392 signatures), one RLC program;
+    3. skipping sync 1 -> 193: the bisection's hops (1 -> 193 refused on
+       trust with no launch, then 1 -> 109 and 109 -> 193), each
+       verified hop two RLC programs (the trusting check's 51 signatures,
+       then the new set's 101);
+    4. backwards: a client rooted at 193 verifies 100 by hashes alone,
+       no launch;
+    5. reject: the primary's height-150 commit with one tampered
+       signature (its 38th); step 1's sync raises the error naming
+       height 150 and that signature, one K1 + K14 over the window's
+       4,848 lanes beside the four RLC programs, and the store holds the
+       root alone;
+    6. witness attack: a witness serving a lunatic fork from height 191
+       (a forged app_hash, signed by the same keys); step 1's sync then
+       raises ErrLightClientAttack: common height 190, the 150 validators
+       of the common set that signed the primary's commit as byzantine,
+       the primary sent the evidence against the witness and the witness
+       the evidence against the primary; the witness's chain 190 -> 193
+       verified with two RLC programs.
+    Each step's counts are set to 0 after its client is made (the root's
+    own commit check is set-up) and read after it."""
+    from cometbft_tpu_torch.crypto import ed25519 as ed
+    from cometbft_tpu_torch.libs import latledger
+    from cometbft_tpu_torch.light import client as lc
+    from cometbft_tpu_torch.light import verifier as lv
+    from cometbft_tpu_torch.light.provider import MemoryProvider
+    from cometbft_tpu_torch.types import validation as val
+    from cometbft_tpu_torch.types.timestamp import Timestamp
+
+    fx = _light_fixtures(state)
+    chain, fork = fx["chain"], fx["fork"]
+    cache = ed._A_TABLE_CACHE
+    now = Timestamp(LIGHT_T0 + LIGHT_TOP + 60, 0)
+    headers = LIGHT_TOP - 1
+    out = {"validators": N_VALS, "heights": LIGHT_TOP,
+           "depth_cut": f"{LIGHT_TOP} headers of BASELINE's 10,000",
+           "rotations": [list(r) for r in LIGHT_ROTATIONS],
+           "root_power_at_top": sum(
+               v.voting_power for v in fx["sets"][LIGHT_TOP].validators
+               if fx["sets"][1].has_address(v.address)),
+           "signing_seconds": fx["signing_seconds"],
+           "signatures": fx["signatures"]}
+
+    def provider(blocks):
+        return MemoryProvider(CHAIN_ID, dict(blocks))
+
+    def client(primary, root=1, **kw):
+        return lc.Client(CHAIN_ID, lc.TrustOptions(
+            LIGHT_TRUST_NS, root, chain[root].hash()), primary=primary,
+            now_fn=lambda: now, device=DEVICE, **kw)
+
+    seq = dict(verification_mode=lc.SEQUENTIAL,
+               sequential_batch_size=LIGHT_WINDOW, pipeline_depth=2)
+    windows = -(-headers // LIGHT_WINDOW)
+    sigs_per_commit = 2 * N_VALS // 3 + 1
+
+    def run(c, height, label, expect=None):
+        """Verify `height` through c; its seconds, launches, A-table
+        hits and localizations, or the exception of type `expect`."""
+        _zero_counts()
+        h0, err = cache.hits, None
+        with _persig(torch) as persig:
+            t0 = time.perf_counter()
+            try:
+                c.verify_light_block_at_height(height)
+            except Exception as e:              # noqa: BLE001
+                if expect is None or not isinstance(e, expect):
+                    raise
+                err = e
+            dt = time.perf_counter() - t0
+        if expect is not None:
+            check(err is not None, f"{label}: no {expect.__name__} raised")
+        got = _counts()
+        state["light_launches"] = _merge(state.get("light_launches", {}),
+                                         got)
+        return dt, got, cache.hits - h0, persig, err
+
+    def counts(got):
+        return {k: v for k, v in got.items() if v}
+
+    # 1. sequential, pipelined
+    ledger = latledger.LatLedgerRecorder()
+    c = client(provider(chain), **seq)
+    latledger.set_recorder(ledger)
+    try:
+        dt, got, hits, persig, _ = run(c, LIGHT_TOP, "sequential")
+    finally:
+        latledger.set_recorder(None)
+    _want_launches(counts(got), _rlc_want(hits, windows), "sequential")
+    _check_persig(persig, "sequential", 0, calls=0)
+    check(sorted(h for h in range(1, LIGHT_TOP + 1)
+                 if c.trusted_light_block(h) is not None)
+          == list(range(1, LIGHT_TOP + 1)), "sequential: store incomplete")
+    rows = ledger.rows()
+    check(len(rows) == windows and all(
+        r["path"] == "device" and r["consumer"] == "light" for r in rows),
+        f"sequential ledger rows {[(r['path'], r['n']) for r in rows]}")
+    check([r["n"] for r in rows] == [LIGHT_WINDOW * sigs_per_commit] * windows,
+          f"sequential windows of {[r['n'] for r in rows]} signatures")
+    out["sequential"] = {
+        "window": LIGHT_WINDOW, "pipeline_depth": 2, "windows": windows,
+        "seconds": dt, "headers_per_s": headers / dt,
+        "signatures_per_window": [r["n"] for r in rows],
+        "window_latency_ms": [r["wall"] * 1e3 for r in rows],
+        "window_segments_ms": [{k: v * 1e3 for k, v in r["segs"].items()}
+                               for r in rows],
+        "a_table_hits": hits, "launches": counts(got)}
+
+    # 2. sequential, serial, one window
+    c = client(provider(chain), verification_mode=lc.SEQUENTIAL,
+               sequential_batch_size=LIGHT_SERIAL_WINDOW, pipeline_depth=1)
+    dt, got, hits, persig, _ = run(c, LIGHT_TOP, "serial")
+    _want_launches(counts(got), _rlc_want(hits, 1), "serial")
+    _check_persig(persig, "serial", 0, calls=0)
+    check(c.store.size() == LIGHT_TOP, "serial: store incomplete")
+    out["serial"] = {"window": LIGHT_SERIAL_WINDOW, "pipeline_depth": 1,
+                     "seconds": dt, "headers_per_s": headers / dt,
+                     "signatures": headers * sigs_per_commit,
+                     "launches": counts(got)}
+
+    # 3. skipping
+    hops = []
+    verify_lb = lv.verify_light_block
+
+    def hop(trusted, untrusted, *a, **k):
+        b0, h0, t0 = _counts(), cache.hits, time.perf_counter()
+        rec = {"from": trusted.height, "to": untrusted.height}
+        try:
+            verify_lb(trusted, untrusted, *a, **k)
+            rec["verified"] = True
+        except lv.ErrNewValSetCantBeTrusted:
+            rec["verified"] = False
+            raise
+        finally:
+            rec.update(seconds=time.perf_counter() - t0,
+                       launches=_launched(b0, _counts()),
+                       a_table_hits=cache.hits - h0)
+            hops.append(rec)
+
+    c = client(provider(chain))
+    lv.verify_light_block = hop
+    try:
+        dt, got, hits, persig, _ = run(c, LIGHT_TOP, "skipping")
+    finally:
+        lv.verify_light_block = verify_lb
+    for rec in hops:
+        _want_launches(rec["launches"], _rlc_want(
+            rec["a_table_hits"], 2 if rec["verified"] else 0),
+            f"skipping hop {rec['from']} -> {rec['to']}")
+    pivot = 1 + (LIGHT_TOP - 1) * 9 // 16
+    check([(r["from"], r["to"], r["verified"]) for r in hops] ==
+          [(1, LIGHT_TOP, False), (1, pivot, True), (pivot, LIGHT_TOP, True)],
+          f"skipping hops {[(r['from'], r['to']) for r in hops]}")
+    check(sorted(h for h in (1, pivot, LIGHT_TOP)
+                 if c.trusted_light_block(h)) == [1, pivot, LIGHT_TOP]
+          and c.store.size() == 3, "skipping: store")
+    out["skipping"] = {"seconds": dt, "headers_per_s": headers / dt,
+                       "hops": hops, "launches": counts(got)}
+
+    # 4. backwards
+    top, target = LIGHT_BACK
+    c = client(provider(chain), root=top)
+    dt, got, _, persig, _ = run(c, target, "backwards")
+    check(counts(got) == {}, f"backwards launched {counts(got)}")
+    check(c.store.size() == 2 and c.trusted_light_block(target) is not None,
+          "backwards: store")
+    out["backwards"] = {"root": top, "target": target, "seconds": dt,
+                        "headers_per_s": (top - target) / dt}
+
+    # 5. reject: one tampered signature at LIGHT_BAD
+    bad = dict(chain)
+    lb = chain[LIGHT_BAD]
+    commit, bad_sig = _with_sig(lb.signed_header.commit, LIGHT_BAD_SIG, 40, 1)
+    bad[LIGHT_BAD] = type(lb)(type(lb.signed_header)(lb.header, commit),
+                              lb.validator_set)
+    c = client(provider(bad), **seq)
+    dt, got, hits, persig, err = run(c, LIGHT_TOP, "reject",
+                                     val.ErrInvalidSignature)
+    check(str(err) == f"wrong signature in commit at height {LIGHT_BAD}: "
+          f"{bad_sig.hex()}" and getattr(err, "failed_ctx", None)
+          == LIGHT_BAD, f"reject: {err}")
+    _want_launches(counts(got), _merge(_rlc_want(hits, windows),
+                                       PERSIG_LAUNCHES), "reject")
+    _check_persig(persig, "reject", LIGHT_WINDOW * sigs_per_commit)
+    check(c.store.size() == 1 and c.trusted_light_block(1) is not None,
+          f"reject: the store holds {c.store.size()} blocks")
+    out["reject"] = {"height": LIGHT_BAD, "signature": LIGHT_BAD_SIG,
+                     "seconds": dt, "localization_width": persig.widths,
+                     "launches": counts(got)}
+
+    # 6. a lying witness
+    witness = provider({**chain, **fork})
+    primary = provider(chain)
+    c = client(primary, witnesses=[witness], **seq)
+    dt, got, hits, persig, err = run(c, LIGHT_TOP, "attack",
+                                     lc.ErrLightClientAttack)
+    ev = err.evidence
+    common = chain[LIGHT_FORK - 1]
+    signers = [cs.validator_address for cs in
+               chain[LIGHT_TOP].signed_header.commit.signatures]
+    check(ev.common_height == LIGHT_FORK - 1 and
+          ev.conflicting_block.hash() == chain[LIGHT_TOP].hash() and
+          [v.address for v in ev.byzantine_validators] == signers and
+          all(common.validator_set.has_address(a) for a in signers) and
+          ev.total_voting_power == common.validator_set.total_voting_power(),
+          f"attack evidence: common {ev.common_height}, "
+          f"{len(ev.byzantine_validators)} byzantine")
+    check(len(primary.reported_evidence) == 1 and
+          primary.reported_evidence[0].conflicting_block.hash()
+          == fork[LIGHT_TOP].hash() and len(witness.reported_evidence) == 1
+          and witness.reported_evidence[0] is ev,
+          "attack: the evidence did not reach both providers")
+    _want_launches(counts(got), _rlc_want(hits, windows + 2), "attack")
+    _check_persig(persig, "attack", 0, calls=0)
+    check(c.store.size() == 1, f"attack: the store holds {c.store.size()}")
+    out["attack"] = {"fork_from": LIGHT_FORK,
+                     "common_height": ev.common_height,
+                     "byzantine": len(ev.byzantine_validators),
+                     "seconds": dt, "launches": counts(got)}
+    launched = {k for k, v in state["light_launches"].items() if v}
+    check(launched == DEFAULT_KERNELS,
+          f"the light path launched {sorted(launched)}")
+    out["launches"] = counts(state["light_launches"])
+    _zero_counts()
+    return out
+
+
+# -- phase 13: the engine configurations -------------------------------------
 
 def phase_engines(state, torch):
     """Each configuration drives the commit, the window and (where
@@ -3745,7 +4112,7 @@ def phase_engines(state, torch):
     return {"configurations": rows}
 
 
-# -- phase 13: kernel vs plain -----------------------------------------------
+# -- phase 14: kernel vs plain -----------------------------------------------
 
 def _hostile_words(state, torch):
     """K1 input at W = 8192: the phase-4 public keys (two of them
@@ -4759,7 +5126,7 @@ def _raw_secp(torch, name, args, step=None):
     return launch
 
 
-# -- phase 14: timing -------------------------------------------------------
+# -- phase 15: timing -------------------------------------------------------
 
 def _time(torch, fn, args, reps, inner=1, warm=True):
     """Median over reps of the CUDA-event time of `inner` calls made back
@@ -5049,6 +5416,7 @@ def phase_timing(state, torch):
                    "sigcache": state["sigcache_launches"][name],
                    "pipeline": state["pipeline_launches"][name],
                    "votes": state["votes_launches"][name],
+                   "light": state["light_launches"].get(name, 0),
                    **{cfg: c[name]
                       for cfg, c in state["engine_launches"].items()}}
         if name in DEFAULT_KERNELS:
@@ -5061,7 +5429,7 @@ def phase_timing(state, torch):
             launches = sum(v for k, v in by_path.items()
                            if k not in ("main", "mesh", "hash", "secp",
                                         "sr25519", "sigcache", "pipeline",
-                                        "votes"))
+                                        "votes", "light"))
         source, replaces = KERNELS[name]
         rows.append({"name": name, "route": "cuda", "source": CSRC + source,
                      "replaces": replaces, "launches": launches,

@@ -11,6 +11,9 @@ into the port's tensors on a given device; uint32 words travel as their
 int32 bit patterns.  The secp256k1 arrays reach a card from pinned host
 memory without waiting for its queue, so that a program launched on
 them makes the host wait for the card no time.
+
+The light client's state (light blocks, validator sets) crosses as proto
+bytes: the wire form both packages read and write byte for byte.
 """
 
 from __future__ import annotations
@@ -130,3 +133,21 @@ def q_tables_from_numpy(qtab, q_corr, device):
     msm_verify_kernel takes."""
     return (_tensor(qtab, np.int32).to(device),
             _tensor(q_corr, np.int32).to(device))
+
+
+def _proto(obj) -> bytes:
+    return obj if isinstance(obj, (bytes, bytearray)) else obj.to_proto()
+
+
+def light_block_from_proto(obj):
+    """A LightBlock of either package (or its proto bytes) -> the port's
+    LightBlock, through its proto bytes."""
+    from .light.types import LightBlock
+    return LightBlock.from_proto(bytes(_proto(obj)))
+
+
+def validator_set_from_proto(obj):
+    """A ValidatorSet of either package (or its proto bytes) -> the
+    port's ValidatorSet, order, priorities and proposer kept."""
+    from .types.validator_set import ValidatorSet
+    return ValidatorSet.from_proto(bytes(_proto(obj)))

@@ -59,6 +59,8 @@ LOCK_RANKS: dict[str, int] = {
     "metrics.registry": 530,
     "metrics.series": 540,
     "service.lifecycle": 550,
+    # the bls12381 library handle: taken alone, around its build and load
+    "bls12381.lib": 570,
 }
 
 MULTI_OK = frozenset({

@@ -1,6 +1,5 @@
 """Nanosecond-precision timestamps (the port's copy of
-`cometbft_tpu.types.timestamp`, trimmed to what sign-bytes, votes and
-evidence need).
+`cometbft_tpu.types.timestamp`).
 
 Go's time.Time carries nanoseconds; consensus signs its proto form
 (google.protobuf.Timestamp: seconds + nanos), so timestamps stay integer
@@ -9,6 +8,7 @@ Go's time.Time carries nanoseconds; consensus signs its proto form
 
 from __future__ import annotations
 
+import time as _time
 from dataclasses import dataclass
 from datetime import datetime, timezone
 
@@ -23,6 +23,11 @@ class Timestamp:
     def __post_init__(self):
         if not 0 <= self.nanos < 1_000_000_000:
             raise ValueError("nanos out of range")
+
+    @staticmethod
+    def now() -> "Timestamp":
+        ns = _time.time_ns()
+        return Timestamp(ns // 1_000_000_000, ns % 1_000_000_000)
 
     @staticmethod
     def zero() -> "Timestamp":
@@ -55,3 +60,24 @@ class Timestamp:
             frac = f"{self.nanos:09d}".rstrip("0")
             return f"{base}.{frac}Z"
         return base + "Z"
+
+    @staticmethod
+    def from_rfc3339(s: str) -> "Timestamp":
+        """Parse RFC3339 with up to nanosecond fractions (the RPC's time
+        format); an offset other than Z is applied."""
+        s = s.strip()
+        if s.endswith("Z"):
+            s = s[:-1] + "+00:00"
+        frac_nanos = 0
+        if "." in s:
+            head, rest = s.split(".", 1)
+            for i, c in enumerate(rest):
+                if c in "+-":
+                    frac, off = rest[:i], rest[i:]
+                    break
+            else:
+                frac, off = rest, "+00:00"
+            frac_nanos = int(frac.ljust(9, "0")[:9])
+            s = head + off
+        dt = datetime.fromisoformat(s)
+        return Timestamp(int(dt.timestamp()), frac_nanos)

@@ -213,13 +213,28 @@ def verify_commit_light(chain_id: str, vals, block_id, height: int,
     """+2/3 signed; stops as soon as the tally crosses (validation.go:63).
     With defer_to (a DeferredSigBatch), signature checks are collected
     instead of verified; the caller runs defer_to.verify() later."""
+    _verify_commit_light(chain_id, vals, block_id, height, commit,
+                         device, count_all=False, defer_to=defer_to)
+
+
+def verify_commit_light_all_signatures(chain_id: str, vals, block_id,
+                                       height: int, commit,
+                                       device="cuda") -> None:
+    """verify_commit_light without the early exit: every signature for
+    the block is verified, also past +2/3."""
+    _verify_commit_light(chain_id, vals, block_id, height, commit,
+                         device, count_all=True)
+
+
+def _verify_commit_light(chain_id, vals, block_id, height, commit, device,
+                         count_all, defer_to=None):
     dev = devmod.resolve(device)
     _verify_basic(vals, commit, height, block_id)
     needed = vals.total_voting_power() * 2 // 3
     ignore = lambda cs: cs.block_id_flag != BLOCK_ID_FLAG_COMMIT  # noqa: E731
     count = lambda cs: True  # noqa: E731
     _verify(chain_id, vals, commit, needed, ignore, count, dev,
-            count_all=False, lookup_by_index=True, defer_to=defer_to,
+            count_all=count_all, lookup_by_index=True, defer_to=defer_to,
             defer_label=f"commit at height {height}", defer_ctx=height)
 
 
@@ -228,6 +243,20 @@ def verify_commit_light_trusting(chain_id: str, vals, commit,
                                  device="cuda") -> None:
     """trust_level of the (possibly different) valset signed
     (validation.go:129-204); lookup by address, early exit."""
+    _verify_commit_light_trusting(chain_id, vals, commit, trust_level,
+                                  device, count_all=False)
+
+
+def verify_commit_light_trusting_all_signatures(
+        chain_id: str, vals, commit, trust_level: Fraction,
+        device="cuda") -> None:
+    """verify_commit_light_trusting without the early exit."""
+    _verify_commit_light_trusting(chain_id, vals, commit, trust_level,
+                                  device, count_all=True)
+
+
+def _verify_commit_light_trusting(chain_id, vals, commit, trust_level,
+                                  device, count_all):
     dev = devmod.resolve(device)
     if vals is None:
         raise CommitVerificationError("nil validator set")
@@ -242,7 +271,7 @@ def verify_commit_light_trusting(chain_id: str, vals, commit,
     ignore = lambda cs: cs.block_id_flag != BLOCK_ID_FLAG_COMMIT  # noqa: E731
     count = lambda cs: True  # noqa: E731
     _verify(chain_id, vals, commit, needed, ignore, count, dev,
-            count_all=False, lookup_by_index=False)
+            count_all=count_all, lookup_by_index=False)
 
 
 def _verify_basic(vals, commit, height, block_id):
