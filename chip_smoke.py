@@ -2,8 +2,8 @@
 """Drive the PyTorch/CUDA port's commit-verification paths on one NVIDIA
 card (Ed25519 in each of its MSM engine configurations, the device-hash
 route, secp256k1 and mixed-key commits, the verify pipeline, the
-consensus vote stream and the light client), and hold each of its CUDA
-kernels against its plain torch version.  Every per-signature
+consensus vote stream, the light client and block sync), and hold each
+of its CUDA kernels against its plain torch version.  Every per-signature
 localization of an Ed25519 reject (ops/ed25519.verify_kernel) must launch
 exactly one K1 and one K14, on one device over the live signatures.
 
@@ -170,7 +170,28 @@ result):
              from height 191 (ErrLightClientAttack, common height 190,
              150 byzantine validators, each side sent the other's
              evidence); headers/s for the three forward syncs;
- 13. engines the same entry points under each MSM engine configuration
+ 13. blocksync block sync (blocksync/reactor.py) of a kvstore chain of 193
+             heights over the 150 validators (BASELINE's 100k blocks x
+             10k validators cut to 193 x 150; a kvstore `val:` transaction
+             at 79 adds a 151st validator, the set changes at 81), built
+             by the port's BlockExecutor and signed in the pool, each
+             step a fresh node syncing 192 blocks from serving reactors
+             over an in-process loopback double (every message as wire
+             bytes), its BlockExecutor applying them to a kvstore app and
+             its BlockStore storing them, with the verdict cache on (as a
+             node runs): serial (pipeline_depth 1) and pipelined (depth
+             2, the pipeline's blocksync lane), each window one RLC
+             program (VERIFY_WINDOW 48 quantizes to 32 blocks) and each
+             applied block's verify_commit one more (its 49-50 cache
+             misses), exact per window and per block; the latency
+             ledger's windows by stage, devprof's busy share, pipelined
+             / serial; a lying peer serving a LastCommit with one flipped
+             signature (its window fails, one K1 + K14 over the window's
+             1,616 live lanes, the tampered height blamed, the liar
+             stopped, the sync finished by two honest peers); the window
+             cut at the validator-set change; every step's app hash and
+             stored blocks the source's;
+ 14. engines the same entry points under each MSM engine configuration
              (the JAX package's flags, set on the port's modules):
              window_loop (K6), window_loop_blk2048 (K6 under
              COMETBFT_TPU_PALLAS_BLK=2048: 1, 8 and 16 rows per output
@@ -183,7 +204,7 @@ result):
              batch, each verdict the default engine's; each must launch
              exactly its configuration's kernels (and K1 + K14 for each
              localization);
- 14. kernels each kernel vs its plain version on the card, at the shapes
+ 15. kernels each kernel vs its plain version on the card, at the shapes
              phases 2-4 gave it, and K1-K4 and K14 also at the shapes
              of phase 8's sr25519 packs that those lack (the mixed
              commit's and the mixed batch's: N = 64 and 1,024, K14 at 50
@@ -229,7 +250,7 @@ result):
              key; and its first 4,096 lanes), verdict for verdict and
              accumulator for accumulator (frozen, coordinate for
              coordinate), and against ed25519_ref;
- 15. timing  each kernel's median time over runs of 10 launches back to
+ 16. timing  each kernel's median time over runs of 10 launches back to
              back and each plain version's time for one call (CUDA
              events; the kernels phase's comparison warmed it), with
              the bound the card could reach for the same
@@ -245,15 +266,15 @@ The launch counters are reset before phase 2 and read after phase 4
 (the default engine: every one of K1-K4 and K14 must launch there, none
 of K5-K8), reset before and read after phase 5's path (its comparisons
 with the plain version excluded), and reset before and read after each
-configuration of phase 13, reset before and read after phase 6's path
+configuration of phase 14, reset before and read after phase 6's path
 (its host-hash comparisons excluded), reset before and read after
 phase 7's path (its host-wait and order checks excluded), reset before
 and read after phases 8 and 9 (their oracle checks excluded), and reset
 before and read after phase 10 (its serial references and oracles
 excluded), reset after phase 11's first pre-warm and read after its
-third step, and reset before and read after each step of phase 12.
-The signature-verdict cache is off in every phase but 9, phase 10's
-cache step and phase 11.
+third step, and reset before and read after each step of phases 12 and
+13.  The signature-verdict cache is off in every phase but 9, phase
+10's cache step and phases 11 and 13.
 Keys and messages come from a fixed seed; the RLC weights are drawn from
 `secrets`, as they are in use.
 """
@@ -353,7 +374,7 @@ MESH_SHARDS = (1, 2, 4)
 NVLINK_BYTES_PER_S = 450e9     # one direction, H100 SXM data sheet
 
 # the engine flags (ops/ed25519 USE_PALLAS_*, ops/cuda_msm WIN_GROUP, BLK) at
-# the JAX package's defaults, and each configuration of phase 13: its
+# the JAX package's defaults, and each configuration of phase 14: its
 # flags, the kernels it must launch (and no other), whether it also runs
 # the 8,192 batch
 DEFAULT_ENGINE = {"USE_PALLAS_MSM_MAJOR": True, "USE_PALLAS_MSM_LOOP": True,
@@ -516,7 +537,7 @@ def main() -> int:
     phases = [phase_build, phase_fixtures, phase_commit, phase_window,
               phase_batch, phase_mesh, phase_hash, phase_secp, phase_sr25519,
               phase_sigcache, phase_pipeline, phase_votes, phase_light,
-              phase_engines,
+              phase_blocksync, phase_engines,
               phase_kernels, phase_timing]
     ctx = mp.get_context("spawn")
     with ctx.Pool(os.cpu_count() or 1) as pool:
@@ -4062,7 +4083,641 @@ def phase_light(state, torch):
     return out
 
 
-# -- phase 13: the engine configurations -------------------------------------
+# -- phase 13: block sync ----------------------------------------------------
+
+BS_TOP = 193                   # heights 1..193: BASELINE's 100k cut to 193
+BS_TXS = 2                     # kvstore transactions a height
+BS_VAL_AT = 79                 # the kvstore val: transaction; the set
+                               # changes at BS_VAL_AT + 2 = 81
+BS_BAD = 16                    # step 3: the liar's tampered commit height
+BS_BAD_SIG = 37                # ... at this signature, among the first 101
+BS_T0 = 1_700_000_000
+BS_TIMEOUT_S = 300.0
+
+
+class _Reap:
+    """The mempool seam of _bs_fixtures: reap returns the height's
+    transactions, the rest does nothing."""
+
+    def __init__(self):
+        self.txs = []
+
+    def reap_max_bytes_max_gas(self, max_bytes, max_gas):
+        return list(self.txs)
+
+    def pre_update(self):
+        pass
+
+    def lock(self):
+        pass
+
+    def unlock(self):
+        pass
+
+    def flush_app_conn(self):
+        pass
+
+    def update(self, *a, **k):
+        pass
+
+
+class _LoopPeer:
+    """A node's handle on a remote node of a _LoopNet: try_send hands an
+    Envelope of wire bytes to the remote reactor's receive, on the
+    remote node's thread."""
+
+    def __init__(self, local, remote):
+        self.id = remote.name
+        self.local, self.remote = local, remote
+        self.open = True
+
+    def try_send(self, ch, msg, tctx=None):
+        from cometbft_tpu_torch.p2p.base_reactor import Envelope
+
+        if not self.open:
+            return False
+        self.remote.inbox.put(Envelope(
+            src=self.remote.peers[self.local.name], message=bytes(msg),
+            channel_id=ch, tctx=tctx))
+        return True
+
+
+class _LoopSwitch:
+    """What the reactor reads of a switch: peers.get / peers.list,
+    try_broadcast and stop_peer_for_error (the peer dropped on both
+    sides, the reason recorded)."""
+
+    def __init__(self, node):
+        self.node, self.peers, self.stopped = node, self, []
+
+    def get(self, peer_id):
+        return self.node.peers.get(peer_id)
+
+    def list(self):
+        return list(self.node.peers.values())
+
+    def try_broadcast(self, ch, msg):
+        for p in self.list():
+            p.try_send(ch, msg)
+
+    def stop_peer_for_error(self, peer, reason):
+        self.stopped.append((peer.id, reason))
+        self.node.net.disconnect(self.node, peer.remote, reason)
+
+
+_RELEASE = object()
+
+
+def _block_height(env):
+    """The height of a BlockResponse on the wire, else None."""
+    from cometbft_tpu_torch.blocksync import messages as bm
+    m = bm.unwrap(env.message)
+    return m.block.header.height if isinstance(m, bm.BlockResponse) \
+        and m.block is not None else None
+
+
+class _LoopNode:
+    def __init__(self, net, name, reactor):
+        import queue
+        import threading
+
+        self.net, self.name, self.reactor = net, name, reactor
+        self.peers, self.inbox, self.held = {}, queue.Queue(), None
+        self.switch = _LoopSwitch(self)
+        reactor.set_switch(self.switch)
+        self.thread = threading.Thread(target=self._deliver, daemon=True,
+                                       name=f"loop-{name}")
+        self.thread.start()
+
+    def _deliver(self):
+        while True:
+            env = self.inbox.get()
+            if env is None:
+                return
+            if env is _RELEASE:
+                held, self.held = self.held, None
+                for e in sorted(held, key=lambda e: -_block_height(e)):
+                    if e.src.open:
+                        self.reactor.receive(e)
+            elif self.held is not None and _block_height(env) is not None:
+                self.held.append(env)
+            elif env.src.open:
+                self.reactor.receive(env)
+
+    def hold(self):
+        """Queue the blocks sent to this node (before it connects)."""
+        self.held = []
+
+    def release(self, n_blocks):
+        """Once n_blocks blocks are held, deliver them highest first: the
+        lowest lands last, so the sync routine's first window sees them
+        all at once."""
+        _bs_wait(lambda: len(self.held) >= n_blocks,
+                 f"{n_blocks} held blocks", self.reactor)
+        self.inbox.put(_RELEASE)
+
+
+class _LoopNet:
+    """Reactors joined in one process, every message as wire bytes
+    (blocksync/messages.py), a delivery thread a node: a test double of
+    the p2p switch, which the port does not have yet."""
+
+    def __init__(self):
+        self.nodes = {}
+
+    def add(self, name, reactor):
+        self.nodes[name] = _LoopNode(self, name, reactor)
+        return self.nodes[name]
+
+    def connect(self, a, b):
+        a, b = self.nodes[a], self.nodes[b]
+        a.peers[b.name], b.peers[a.name] = _LoopPeer(a, b), _LoopPeer(b, a)
+        a.reactor.add_peer(a.peers[b.name])
+        b.reactor.add_peer(b.peers[a.name])
+
+    def disconnect(self, a, b, reason):
+        for x, y in ((a, b), (b, a)):
+            p = x.peers.pop(y.name, None)
+            if p is not None:
+                p.open = False
+                x.reactor.remove_peer(p, reason)
+
+    def close(self):
+        for n in self.nodes.values():
+            n.reactor.stop()
+            n.inbox.put(None)
+        for n in self.nodes.values():
+            n.thread.join(10)
+
+
+def _bs_wait(cond, what, reactor, timeout=BS_TIMEOUT_S):
+    """Poll cond; raise what stopped the syncing reactor, if anything
+    did (a kernel that does not build, a device fault)."""
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if reactor.error is not None:
+            raise reactor.error
+        check(time.monotonic() < deadline, f"blocksync: timed out waiting "
+              f"for {what}")
+        time.sleep(0.002)
+
+
+def _bs_node(genesis, device, reap=None):
+    """A node's stores (MemDB), its kvstore app after InitChain and its
+    BlockExecutor on `device`."""
+    import types
+
+    from cometbft_tpu_torch.abci import types as at
+    from cometbft_tpu_torch.abci.client import LocalClient
+    from cometbft_tpu_torch.apps.kvstore import KVStoreApplication
+    from cometbft_tpu_torch.state.execution import BlockExecutor
+    from cometbft_tpu_torch.state.state import make_genesis_state
+    from cometbft_tpu_torch.state.store import StateStore
+    from cometbft_tpu_torch.store.blockstore import BlockStore
+    from cometbft_tpu_torch.store.kv import MemDB
+
+    n = types.SimpleNamespace(state=make_genesis_state(genesis))
+    n.sstore = StateStore(MemDB())
+    n.sstore.bootstrap(n.state)
+    n.bstore = BlockStore(MemDB())
+    n.app = KVStoreApplication()
+    n.client = LocalClient(n.app)
+    n.client.init_chain(at.InitChainRequest(
+        chain_id=genesis.chain_id, initial_height=n.state.initial_height))
+    n.exe = BlockExecutor(n.sstore, n.client, reap, device=device)
+    return n
+
+
+def _bs_fixtures(state):
+    """Heights 1..BS_TOP of a kvstore chain over the fixture phase's 150
+    validators, built as the JAX package's simnet grow_chain builds one:
+    proposals from the port's own BlockExecutor.create_proposal_block over
+    a reap double (BS_TXS transactions `sim{h}x{t}=v{h}` a height), every
+    validator signing the canonical precommit with one timestamp a height
+    (in the pool), save_block, then apply_block.  The `val:` transaction
+    at BS_VAL_AT adds a 151st validator whose key the script holds."""
+    import base64
+
+    from cometbft_tpu_torch.crypto import ed25519 as ed
+    from cometbft_tpu_torch.types import block, canonical
+    from cometbft_tpu_torch.types.genesis import GenesisDoc, GenesisValidator
+    from cometbft_tpu_torch.types.part_set import PartSet
+    from cometbft_tpu_torch.types.timestamp import Timestamp
+
+    t0 = time.perf_counter()
+    joiner_seed = _seed("blocksync-joiner")
+    joiner = ed.PubKey(_pool_map(state["pool"], _pubkeys, [joiner_seed])[0])
+    seed_of = dict(state["seed_of"])
+    seed_of[joiner.address()] = joiner_seed
+    genesis = GenesisDoc(
+        chain_id=CHAIN_ID, genesis_time=Timestamp(BS_T0, 0),
+        validators=[GenesisValidator(pub_key=v.pub_key, power=10)
+                    for v in state["vals"].validators])
+    reap = _Reap()
+    src = _bs_node(genesis, DEVICE, reap)
+    src.blocks, sign_s = [], 0.0
+    last_ext = block.ExtendedCommit()
+    for h in range(1, BS_TOP + 1):
+        reap.txs = [f"sim{h}x{t}=v{h}".encode() for t in range(BS_TXS)]
+        if h == BS_VAL_AT:
+            reap.txs.append(b"val:" + base64.b64encode(joiner.bytes())
+                            + b"!10")
+        st = src.state
+        blk = src.exe.create_proposal_block(
+            h, st, last_ext, st.validators.get_proposer().address)
+        parts = PartSet.from_data(blk.to_proto())
+        bid = block.BlockID(blk.hash(), parts.header)
+        ts = blk.header.time.add_ns(1_000_000_000)
+        sb = canonical.vote_sign_bytes(CHAIN_ID, canonical.PRECOMMIT, h, 0,
+                                       bid, ts)
+        t1 = time.perf_counter()
+        sigs = _pool_map(state["pool"], _sign, [
+            (seed_of[v.address], sb) for v in st.validators.validators])
+        sign_s += time.perf_counter() - t1
+        last_ext = block.ExtendedCommit(
+            height=h, round=0, block_id=bid, extended_signatures=[
+                block.ExtendedCommitSig(block.BLOCK_ID_FLAG_COMMIT,
+                                        v.address, ts, s)
+                for v, s in zip(st.validators.validators, sigs)])
+        src.bstore.save_block(blk, parts, last_ext.to_commit())
+        src.state = src.exe.apply_block(st, bid, blk)
+        src.blocks.append(blk)
+    src.genesis, src.joiner = genesis, joiner
+    src.build_seconds = time.perf_counter() - t0
+    src.signing_seconds = sign_s
+    return src
+
+
+def _bs_liar_store(src):
+    """The liar's store: the chain with one byte of signature BS_BAD_SIG
+    flipped in the LastCommit of block BS_BAD + 1 (the commit of BS_BAD;
+    the block's own ID changes, the commit's block ID does not)."""
+    from cometbft_tpu_torch.store.blockstore import BlockStore
+    from cometbft_tpu_torch.store.kv import MemDB
+    from cometbft_tpu_torch.types import block
+    from cometbft_tpu_torch.types.part_set import PartSet
+
+    store = BlockStore(MemDB())
+    for h in range(1, BS_TOP + 1):
+        b = block.Block.from_proto(src.bstore.load_block_bytes(h))
+        if h == BS_BAD + 1:
+            b.last_commit, bad_sig = _with_sig(b.last_commit, BS_BAD_SIG,
+                                               40, 1)
+        store.save_block(b, PartSet.from_data(b.to_proto()),
+                         src.bstore.load_seen_commit(h))
+    return store, bad_sig
+
+
+def _bs_sync(state, torch, fx, depth, liar_store=None, ledger=None,
+             prof=None):
+    """A fresh node on DEVICE syncs from two honest serving reactors
+    (and, with liar_store, a third serving it, connected alone first).
+    The counts are set to 0 just before the blocks are released and read
+    when the node has handed off.  Returns the step's record."""
+    from cometbft_tpu_torch.blocksync import pool as bpool
+    from cometbft_tpu_torch.blocksync import reactor as br
+    from cometbft_tpu_torch.crypto import ed25519 as ed
+    from cometbft_tpu_torch.crypto import sigcache
+    from cometbft_tpu_torch.libs import devprof, latledger, trace
+    from cometbft_tpu_torch.types import validation as val
+
+    cache = ed._A_TABLE_CACHE
+    src = fx["src"]
+    tracer = trace.StageTracer()
+    target = BS_TOP - 1
+    me = _bs_node(src.genesis, DEVICE)
+    me.reactor = br.BlocksyncReactor(me.state, me.exe, me.bstore, True,
+                                     device=DEVICE, pipeline_depth=depth)
+    serial = depth == 1
+    peeks, windows, applies, blamed = {}, [], [], []
+    pool = me.reactor.pool
+    peek, redo = pool.peek_window, pool.redo_request
+
+    def peek_window(max_blocks, offset=0):
+        win, after = peek(max_blocks, offset)
+        if win:
+            peeks[win[0][0].header.height] = (len(win), after is not None)
+        return win, after
+
+    def redo_request(height):
+        blamed.append(height)
+        return redo(height)
+
+    pool.peek_window, pool.redo_request = peek_window, redo_request
+    verify, verify_async = val.DeferredSigBatch.verify, \
+        val.DeferredSigBatch.verify_async
+    validate = me.exe.validate_block
+
+    def record(batch):
+        hs = sorted({e[1] for e in batch._entries})
+        return {"first": hs[0], "last": hs[-1], "blocks": len(hs),
+                "signatures": batch.count()}
+
+    def w_verify(self, device="cuda"):
+        rec = record(self)
+        triples = [(e[2], e[3], e[4]) for e in self._entries]
+        rec["misses"] = len(sigcache.partition(triples)[1]) \
+            if liar_store is not None else rec["signatures"]
+        b0, h0, t0 = _counts(), cache.hits, time.perf_counter()
+        try:
+            verify(self, device=device)
+            rec["ok"] = True
+        except val.ErrInvalidSignature as e:
+            rec.update(ok=False, failed_ctx=e.failed_ctx)
+            raise
+        finally:
+            rec.update(seconds=time.perf_counter() - t0,
+                       launches=_launched(b0, _counts()),
+                       a_table_hits=cache.hits - h0)
+            windows.append(rec)
+
+    def w_verify_async(self, pipeline, subsystem="pipeline", lane=None):
+        windows.append(record(self))
+        return verify_async(self, pipeline, subsystem=subsystem, lane=lane)
+
+    def w_validate(st, blk):
+        b0, h0, t0 = _counts(), cache.hits, time.perf_counter()
+        try:
+            return validate(st, blk)
+        finally:
+            applies.append({"height": blk.header.height,
+                            "seconds": time.perf_counter() - t0,
+                            "launches": _launched(b0, _counts())
+                            if serial else None,
+                            "a_table_hits": cache.hits - h0})
+
+    me.exe.validate_block = w_validate
+    net = _LoopNet()
+    sigcache.reset()
+    val.DeferredSigBatch.verify = w_verify
+    val.DeferredSigBatch.verify_async = w_verify_async
+    latledger.set_recorder(ledger)
+    devprof.set_recorder(prof)
+    trace.set_tracer(tracer)
+    try:
+        with _persig(torch) as persig:
+            net.add("me", me.reactor)
+            honest = ("honest-a", "honest-b")
+            for name in honest:
+                net.add(name, br.BlocksyncReactor(
+                    src.state, src.exe, src.bstore, False,
+                    device=DEVICE)).reactor.start()
+            if liar_store is not None:
+                net.add("liar", br.BlocksyncReactor(
+                    src.state, src.exe, liar_store, False,
+                    device=DEVICE)).reactor.start()
+            me.reactor.start()
+            mine = net.nodes["me"]
+            mine.hold()
+            first = ("liar",) if liar_store is not None else honest
+            for name in first:
+                net.connect("me", name)
+            _zero_counts()
+            h0 = cache.hits
+            t0 = time.perf_counter()
+            mine.release(min(BS_TOP, len(first)
+                             * bpool.MAX_PENDING_REQUESTS_PER_PEER))
+            if liar_store is not None:
+                _bs_wait(lambda: mine.switch.stopped, "the liar's stop",
+                         me.reactor)
+                for name in honest:
+                    net.connect("me", name)
+            _bs_wait(lambda: me.reactor.state.last_block_height >= target,
+                     "the sync", me.reactor)
+            seconds = time.perf_counter() - t0
+            check(me.reactor.wait_synced(30),
+                  "blocksync: timed out waiting for the hand-off")
+            got = _counts()
+            hits = cache.hits - h0
+    finally:
+        val.DeferredSigBatch.verify = verify
+        val.DeferredSigBatch.verify_async = verify_async
+        latledger.set_recorder(None)
+        devprof.set_recorder(None)
+        trace.set_tracer(None)
+        net.close()
+    state["blocksync_launches"] = _merge(state.get("blocksync_launches", {}),
+                                         got)
+    # the synced node against the source
+    top = src.blocks[BS_TOP - 1]
+    check(me.reactor.state.last_block_height == target and
+          me.reactor.state.app_hash == top.header.app_hash and
+          me.app.app_hash == top.header.app_hash and
+          me.sstore.load().to_proto() == me.reactor.state.to_proto(),
+          f"blocksync: the node stopped at height "
+          f"{me.reactor.state.last_block_height}, app hash "
+          f"{me.reactor.state.app_hash.hex()}, not {top.header.app_hash.hex()}")
+    check(me.bstore.base() == 1 and me.bstore.height() == target and all(
+        me.bstore.load_block_bytes(h) == src.bstore.load_block_bytes(h)
+        and me.bstore.load_block(h).hash() == src.blocks[h - 1].hash()
+        for h in range(1, target + 1)), "blocksync: the stored blocks "
+          "differ from the source's")
+    threshold = val.DeferredSigBatch.DEVICE_THRESHOLD
+    device_windows = [w for w in windows
+                      if w.get("misses", w["signatures"]) >= threshold]
+    programs = [a for a in applies if a["height"] > 1]
+    return {"me": me, "seconds": seconds, "got": got, "hits": hits,
+            "windows": windows, "device_windows": device_windows,
+            "applies": applies, "apply_programs": len(programs),
+            "peeks": peeks, "blamed": blamed, "persig": persig,
+            "stopped": list(mine.switch.stopped),
+            "stages": {k: v for k, v in tracer.snapshot().items()
+                       if k.startswith("blocksync.")},
+            "blocks_per_s": target / seconds}
+
+
+def _bs_check_launches(rec, label):
+    """A serial step's launches, exactly: a window whose cache misses
+    reach DeferredSigBatch's device threshold one RLC program (and one
+    K1 + K14 more where it failed), one below it none; each applied
+    block's validate_block one RLC program past the first height (its
+    LastCommit's signatures the window's light check did not reach)."""
+    for w in rec["windows"]:
+        want = _rlc_want(w["a_table_hits"], 1) \
+            if w in rec["device_windows"] else {}
+        if not w["ok"]:
+            want = _merge(want, PERSIG_LAUNCHES)
+        _want_launches(w["launches"], want,
+                       f"{label} window {w['first']}..{w['last']}")
+    for a in rec["applies"]:
+        _want_launches(a["launches"], _rlc_want(
+            a["a_table_hits"], 1 if a["height"] > 1 else 0),
+            f"{label} apply at {a['height']}")
+
+
+def _bs_valset_break(rec):
+    """The window that meets the set change: the window holding height
+    BS_VAL_AT + 1 (the last under the old set) ends there, the next
+    starts at BS_VAL_AT + 2; the peek it was collected from reached past
+    it, so the change cut it (reactor.py's validators_hash check)."""
+    change = BS_VAL_AT + 2
+    wins = rec["windows"]
+    i = next(i for i, w in enumerate(wins) if w["first"] <= change - 1
+             <= w["last"])
+    w, nxt = wins[i], wins[i + 1]
+    n, has_after = rec["peeks"].get(w["first"], (0, False))
+    usable = n if has_after else n - 1
+    while usable & (usable - 1):
+        usable &= usable - 1
+    return {"window": [w["first"], w["last"]],
+            "next": [nxt["first"], nxt["last"]],
+            "peeked": n, "quantized": usable,
+            "cut": w["last"] == change - 1 and nxt["first"] == change
+            and usable > w["blocks"]}
+
+
+def phase_blocksync(state, torch):
+    """Block sync (blocksync/reactor.py) on the card, with the verdict
+    cache on, as a node runs (cleared before each step, off after the
+    phase): a kvstore chain of 193 heights over the 150 validators (BASELINE's
+    100k blocks x 10k validators cut to 193 x 150), 2 transactions a
+    height, a `val:` transaction at 79 adding a 151st validator (the set
+    changes at 81), built by the port's BlockExecutor and signed in the
+    pool; each step a fresh node syncs 192 blocks over the loopback
+    double (_LoopNet), its first blocks held and released at once:
+    1. serial (pipeline_depth 1) from two honest serving reactors: each
+       window one RLC program (K1-K4; VERIFY_WINDOW 48 quantizes to 32
+       blocks, 3,232 signatures); each applied block's validate_block
+       (verify_commit, every signature: the 49-50 the window's light
+       check did not reach are cache misses) one RLC program more;
+    2. pipelined (depth 2; windows on the pipeline's blocksync lane):
+       the same launches in total, the latency ledger's windows by stage,
+       devprof's busy share, pipelined / serial;
+    3. a lying peer, alone first: it serves block 17 with signature 37
+       of its LastCommit flipped; the first window (1..16, its 20 blocks
+       held and released at once) fails its RLC program and is localized
+       by one K1 + K14 over its 1,616 live lanes, height 16 is blamed,
+       the liar stopped; two honest peers then finish the sync;
+    4. the validator-set change: the window holding height 80 ends there
+       (cut), the next starts at 81 on the new set.
+    Each step: app hash and stored blocks equal the source's; its figures
+    on a line of their own (`blocksync_step`), with the card's name and
+    power limit."""
+    from cometbft_tpu_torch.blocksync import reactor as br
+    from cometbft_tpu_torch.crypto import sigcache
+    from cometbft_tpu_torch.libs import devprof, latledger
+    from cometbft_tpu_torch.types import validation as val
+
+    fx = {"src": _bs_fixtures(state)}
+    src = fx["src"]
+    out = {"validators": N_VALS, "heights": BS_TOP, "synced": BS_TOP - 1,
+           "depth_cut": f"{BS_TOP} blocks x {N_VALS} validators of "
+                        f"BASELINE's 100k x 10k",
+           "verify_window": br.VERIFY_WINDOW, "card": state["card"],
+           "build_seconds": src.build_seconds,
+           "signing_seconds": src.signing_seconds,
+           "app_hash": src.blocks[BS_TOP - 1].header.app_hash.hex()}
+
+    def summary(rec):
+        """The step's figures: windows as [first, last, signatures], the
+        applied blocks' validate_block ms (median, sum, max) and, where
+        the step is serial, their launches apart from the windows'."""
+        ms = sorted(a["seconds"] * 1e3 for a in rec["applies"])
+        per = [a["launches"] for a in rec["applies"]
+               if a["launches"] is not None]
+        return {"seconds": rec["seconds"],
+                "blocks_per_s": rec["blocks_per_s"],
+                "windows": [[x["first"], x["last"], x["signatures"]]
+                            for x in rec["windows"]],
+                "launches": {k: v for k, v in rec["got"].items() if v},
+                "a_table_hits": rec["hits"],
+                "apply_programs": rec["apply_programs"],
+                "apply_launches": _merge(*per) if per else None,
+                "stages": rec["stages"],
+                "validate_ms": {"median": ms[len(ms) // 2], "sum": sum(ms),
+                                "max": ms[-1]}}
+
+    sigcache.set_enabled(True)
+    try:
+        # 1. serial
+        rec = _bs_sync(state, torch, fx, 1)
+        check(all(w["ok"] for w in rec["windows"]),
+              "serial: a window failed")
+        _bs_check_launches(rec, "serial")
+        _want_launches({k: v for k, v in rec["got"].items() if v}, _rlc_want(
+            rec["hits"], len(rec["device_windows"]) + rec["apply_programs"]),
+            "serial")
+        _check_persig(rec["persig"], "serial", 0, calls=0)
+        check(rec["stopped"] == [] and rec["blamed"] == [],
+              f"serial: stopped {rec['stopped']}, blamed {rec['blamed']}")
+        brk = _bs_valset_break(rec)
+        check(brk["cut"], f"serial: the set change did not cut a window: "
+              f"{brk}")
+        serial = rec
+        out["serial"] = summary(rec)
+        out["serial"]["window_ms"] = [w["seconds"] * 1e3
+                                      for w in rec["windows"]]
+        out["serial"]["window_launches"] = [w["launches"]
+                                            for w in rec["windows"]]
+        emit({"blocksync_step": "serial", "card": state["card"],
+              **out["serial"]})
+
+        # 2. pipelined
+        ledger = latledger.LatLedgerRecorder()
+        prof = devprof.DevprofRecorder()
+        rec = _bs_sync(state, torch, fx, 2, ledger=ledger, prof=prof)
+        rows = [r for r in ledger.rows() if r["consumer"] == "blocksync"]
+        check(len(rows) == len(rec["windows"]) and all(
+            r["path"] == ("device" if r["n"] >= val.DeferredSigBatch
+                          .DEVICE_THRESHOLD else "host") for r in rows),
+              f"pipelined ledger rows {[(r['path'], r['n']) for r in rows]}")
+        _want_launches({k: v for k, v in rec["got"].items() if v}, _rlc_want(
+            rec["hits"], len(rec["device_windows"]) + rec["apply_programs"]),
+            "pipelined")
+        _check_persig(rec["persig"], "pipelined", 0, calls=0)
+        occ = devprof.occupancy_summary(prof.snapshot())
+        out["pipelined"] = summary(rec)
+        out["pipelined"].update(
+            pipeline_depth=2,
+            window_latency_ms=[r["wall"] * 1e3 for r in rows],
+            window_segments_ms=[{k: v * 1e3 for k, v in r["segs"].items()}
+                                for r in rows],
+            busy_share=occ["device_occupancy_fraction"],
+            staging_share=occ["host_bound_fraction"],
+            idle_seconds=occ["idle_cause_seconds"],
+            pipelined_over_serial=serial["seconds"] / rec["seconds"])
+        emit({"blocksync_step": "pipelined", "card": state["card"],
+              **out["pipelined"]})
+        out["valset_change"] = {"serial": brk,
+                                "pipelined": _bs_valset_break(rec)}
+        emit({"blocksync_step": "valset_change", "card": state["card"],
+              **out["valset_change"]})
+
+        # 3. a lying peer
+        store, bad_sig = _bs_liar_store(src)
+        rec = _bs_sync(state, torch, fx, 1, liar_store=store)
+        bad = [w for w in rec["windows"] if not w["ok"]]
+        check(len(bad) == 1 and bad[0]["first"] == 1 and
+              bad[0]["last"] == BS_BAD and bad[0]["failed_ctx"] == BS_BAD,
+              f"lying peer: failed windows {bad}")
+        check(rec["blamed"][:1] == [BS_BAD] and
+              ("liar", "served invalid block") in rec["stopped"] and
+              all(pid == "liar" for pid, _ in rec["stopped"]),
+              f"lying peer: blamed {rec['blamed']}, stopped "
+              f"{rec['stopped']}")
+        _bs_check_launches(rec, "lying peer")
+        _check_persig(rec["persig"], "lying peer", bad[0]["signatures"])
+        out["lying_peer"] = summary(rec)
+        out["lying_peer"].update(
+            bad_height=BS_BAD, bad_signature=BS_BAD_SIG,
+            bad_sig=bad_sig.hex()[:16], blamed=rec["blamed"],
+            stopped=rec["stopped"], localization_width=rec["persig"].widths,
+            failed_window_launches=bad[0]["launches"])
+        emit({"blocksync_step": "lying_peer", "card": state["card"],
+              **out["lying_peer"]})
+    finally:
+        sigcache.reset()
+        sigcache.set_enabled(False)
+    launched = {k for k, v in state["blocksync_launches"].items() if v}
+    check(launched == DEFAULT_KERNELS,
+          f"the blocksync path launched {sorted(launched)}")
+    out["launches"] = {k: v for k, v in state["blocksync_launches"].items()
+                       if v}
+    _zero_counts()
+    return out
+
+
+# -- phase 14: the engine configurations -------------------------------------
 
 def phase_engines(state, torch):
     """Each configuration drives the commit, the window and (where
@@ -4112,7 +4767,7 @@ def phase_engines(state, torch):
     return {"configurations": rows}
 
 
-# -- phase 14: kernel vs plain -----------------------------------------------
+# -- phase 15: kernel vs plain -----------------------------------------------
 
 def _hostile_words(state, torch):
     """K1 input at W = 8192: the phase-4 public keys (two of them
@@ -5126,7 +5781,7 @@ def _raw_secp(torch, name, args, step=None):
     return launch
 
 
-# -- phase 15: timing -------------------------------------------------------
+# -- phase 16: timing -------------------------------------------------------
 
 def _time(torch, fn, args, reps, inner=1, warm=True):
     """Median over reps of the CUDA-event time of `inner` calls made back
@@ -5417,6 +6072,7 @@ def phase_timing(state, torch):
                    "pipeline": state["pipeline_launches"][name],
                    "votes": state["votes_launches"][name],
                    "light": state["light_launches"].get(name, 0),
+                   "blocksync": state["blocksync_launches"].get(name, 0),
                    **{cfg: c[name]
                       for cfg, c in state["engine_launches"].items()}}
         if name in DEFAULT_KERNELS:
@@ -5429,7 +6085,7 @@ def phase_timing(state, torch):
             launches = sum(v for k, v in by_path.items()
                            if k not in ("main", "mesh", "hash", "secp",
                                         "sr25519", "sigcache", "pipeline",
-                                        "votes", "light"))
+                                        "votes", "light", "blocksync"))
         source, replaces = KERNELS[name]
         rows.append({"name": name, "route": "cuda", "source": CSRC + source,
                      "replaces": replaces, "launches": launches,

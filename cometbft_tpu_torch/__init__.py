@@ -6,9 +6,10 @@ kernel for each step the JAX package runs as a Pallas TPU kernel, and
 for SHA-512 / SHA-256 on the device-hash path and validator-set hashing;
 secp256k1 and mixed-key commits run on hand-written kernels too (the
 per-key tables, the MSM verify and the ladder).  The consumers on top
-of it: the verify pipeline, the consensus vote stream and the light
-client (light/), with the wire types they read.  The
-package imports torch, numpy and the standard library only; its entry
-points take `device=` (default "cuda") and run every kernel's plain
-torch version when the caller passes device="cpu".
+of it: the verify pipeline, the consensus vote stream, the light
+client (light/) and block sync (blocksync/, with the block and state
+stores, part sets and block execution on the kvstore app), with the wire
+types they read.  The package imports torch, numpy and the standard
+library only; its entry points take `device=` (default "cuda") and run
+every kernel's plain torch version when the caller passes device="cpu".
 """

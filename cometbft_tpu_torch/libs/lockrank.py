@@ -34,6 +34,16 @@ from concurrent.futures import Future
 
 # lower rank = acquired first; the JAX package's ranks for the same names
 LOCK_RANKS: dict[str, int] = {
+    # per-request ABCI callback guard: fires callbacks while held
+    "abci.reqres": 55,
+    "blocksync.pool": 80,
+    # storage plane (held while touching kv and the encode-once cache)
+    "store.blockstore": 140,
+    "state.store": 150,
+    "store.kv": 160,
+    # abci / app
+    "abci.client": 290,
+    "apps.kvstore": 330,
     # verify plane: the default-instance guards, the vote stream's
     # condition variable (its worker polls the pipeline's QoS seal
     # advisory under it), then the pipeline's condition variable
@@ -48,6 +58,7 @@ LOCK_RANKS: dict[str, int] = {
     "secp256k1.qtable": 440,
     "sigcache.global": 450,
     "sigcache.stripe": 460,
+    "part_set.block_cache": 470,
     # observability rings: leaf-most, recordable from under any of the
     # above.  latledger sits outside flightrec: committing a row under
     # its ring lock may record an EV_SLO_BURN event
@@ -64,6 +75,8 @@ LOCK_RANKS: dict[str, int] = {
 }
 
 MULTI_OK = frozenset({
+    "blocksync.pool", "store.blockstore", "state.store", "store.kv",
+    "abci.client", "apps.kvstore", "abci.reqres", "part_set.block_cache",
     "votestream.cv", "dispatch.cv", "devhealth.registry", "sigcache.stripe",
     "devprof.ring", "flightrec.ring", "tracetl.ring", "trace.stage",
     "metrics.registry", "metrics.series", "service.lifecycle",

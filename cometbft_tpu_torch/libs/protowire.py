@@ -18,6 +18,12 @@ _U64 = (1 << 64) - 1
 
 MASK64 = (1 << 64) - 1
 
+
+def delimited_field_size(n: int) -> int:
+    """Wire size of an n-byte length-delimited field with a 1-byte tag
+    (types/tx.go ComputeProtoSizeForTxs)."""
+    return 1 + len(encode_uvarint(n)) + n
+
 # wire types
 VARINT = 0
 FIXED64 = 1
@@ -82,6 +88,11 @@ class Writer:
         """int32/int64/enum: negative encodes as 10-byte two's complement."""
         if v != 0:
             self.tag(field, VARINT).raw(encode_uvarint(v & _U64))
+        return self
+
+    def bool_field(self, field: int, v: bool) -> "Writer":
+        if v:
+            self.tag(field, VARINT).raw(b"\x01")
         return self
 
     def sfixed64_field(self, field: int, v: int) -> "Writer":

@@ -256,3 +256,29 @@ def evidence_from_proto_wrapped(payload: bytes):
             return LightClientAttackEvidence.from_proto(r.read_bytes())
         r.skip(w)
     raise ValueError("empty Evidence message")
+
+
+def evidence_to_abci(ev) -> list:
+    """ABCI Misbehavior records for one evidence item
+    (types/evidence.go ABCI() — a light-client attack yields one record
+    per byzantine validator)."""
+    from ..abci import types as at
+    if isinstance(ev, DuplicateVoteEvidence):
+        return [at.Misbehavior(
+            type=at.MISBEHAVIOR_DUPLICATE_VOTE,
+            validator=at.Validator(
+                address=ev.vote_a.validator_address,
+                power=ev.validator_power),
+            height=ev.height(),
+            time=ev.time(),
+            total_voting_power=ev.total_voting_power)]
+    if isinstance(ev, LightClientAttackEvidence):
+        return [at.Misbehavior(
+            type=at.MISBEHAVIOR_LIGHT_CLIENT_ATTACK,
+            validator=at.Validator(address=val.address,
+                                   power=val.voting_power),
+            height=ev.height(),
+            time=ev.time(),
+            total_voting_power=ev.total_voting_power)
+            for val in ev.byzantine_validators]
+    raise ValueError(f"unknown evidence type {type(ev)}")
