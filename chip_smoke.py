@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port's commit-verification paths on one NVIDIA
 card (Ed25519 in each of its MSM engine configurations, the device-hash
 route, secp256k1 and mixed-key commits, the verify pipeline, the
-consensus vote stream, the light client and block sync), and hold each
+consensus vote stream, the light client, block sync and consensus among
+live validators), and hold each
 of its CUDA kernels against its plain torch version.  Every per-signature
 localization of an Ed25519 reject (ops/ed25519.verify_kernel) must launch
 exactly one K1 and one K14, on one device over the live signatures.
@@ -191,7 +192,20 @@ result):
              stopped, the sync finished by two honest peers); the window
              cut at the validator-set change; every step's app hash and
              stored blocks the source's;
- 14. engines the same entry points under each MSM engine configuration
+ 14. consensus 11 in-process validators, each a full port node
+             (ConsensusState, ConsensusReactor, CListMempool,
+             EvidencePool, FilePV, EventBus, a BlockExecutor over a
+             kvstore app, a WAL) over the loopback double, at CometBFT's
+             default timeouts: with the cache off and the vote stream's
+             device threshold 1, 2,000 transactions committed once each
+             by height 20 with the same blocks on every node, every
+             LastCommit check one RLC program and every vote window one
+             (or K1 + K14 for a window of one vote), launches exact; a
+             tampered vote's window localized by one K1 + K14 and the
+             vote not added; node 0's WAL ending every height; the same
+             network at the default knobs (cache on, 256); an
+             equivocating validator's evidence committed;
+ 15. engines the same entry points under each MSM engine configuration
              (the JAX package's flags, set on the port's modules):
              window_loop (K6), window_loop_blk2048 (K6 under
              COMETBFT_TPU_PALLAS_BLK=2048: 1, 8 and 16 rows per output
@@ -204,9 +218,10 @@ result):
              batch, each verdict the default engine's; each must launch
              exactly its configuration's kernels (and K1 + K14 for each
              localization);
- 15. kernels each kernel vs its plain version on the card, at the shapes
+ 16. kernels each kernel vs its plain version on the card, at the shapes
              phases 2-4 gave it, and K1-K4 and K14 also at the shapes
-             of phase 8's sr25519 packs that those lack (the mixed
+             of phase 8's sr25519 packs and phase 14's programs and
+             localizations that those lack (the mixed
              commit's and the mixed batch's: N = 64 and 1,024, K14 at 50
              and 1,000 live lanes) (exact integer equality; K1 at the four
              main-path widths and on hostile encodings, K1 and K2 also at
@@ -250,7 +265,7 @@ result):
              key; and its first 4,096 lanes), verdict for verdict and
              accumulator for accumulator (frozen, coordinate for
              coordinate), and against ed25519_ref;
- 16. timing  each kernel's median time over runs of 10 launches back to
+ 17. timing  each kernel's median time over runs of 10 launches back to
              back and each plain version's time for one call (CUDA
              events; the kernels phase's comparison warmed it), with
              the bound the card could reach for the same
@@ -266,15 +281,17 @@ The launch counters are reset before phase 2 and read after phase 4
 (the default engine: every one of K1-K4 and K14 must launch there, none
 of K5-K8), reset before and read after phase 5's path (its comparisons
 with the plain version excluded), and reset before and read after each
-configuration of phase 14, reset before and read after phase 6's path
+configuration of phase 15, reset before and read after phase 6's path
 (its host-hash comparisons excluded), reset before and read after
 phase 7's path (its host-wait and order checks excluded), reset before
 and read after phases 8 and 9 (their oracle checks excluded), and reset
 before and read after phase 10 (its serial references and oracles
 excluded), reset after phase 11's first pre-warm and read after its
-third step, and reset before and read after each step of phases 12 and
-13.  The signature-verdict cache is off in every phase but 9, phase
-10's cache step and phases 11 and 13.
+third step, reset before and read after each step of phases 12 and 13,
+and reset before and read after phase 14's first network (the default
+knobs' network is counted apart).  The signature-verdict cache is off
+in every phase but 9, phase 10's cache step, phases 11 and 13 and phase
+14's default knobs.
 Keys and messages come from a fixed seed; the RLC weights are drawn from
 `secrets`, as they are in use.
 """
@@ -537,7 +554,7 @@ def main() -> int:
     phases = [phase_build, phase_fixtures, phase_commit, phase_window,
               phase_batch, phase_mesh, phase_hash, phase_secp, phase_sr25519,
               phase_sigcache, phase_pipeline, phase_votes, phase_light,
-              phase_blocksync, phase_engines,
+              phase_blocksync, phase_consensus, phase_engines,
               phase_kernels, phase_timing]
     ctx = mp.get_context("spawn")
     with ctx.Pool(os.cpu_count() or 1) as pool:
@@ -4122,24 +4139,34 @@ class _Reap:
 
 
 class _LoopPeer:
-    """A node's handle on a remote node of a _LoopNet: try_send hands an
-    Envelope of wire bytes to the remote reactor's receive, on the
-    remote node's thread."""
+    """A node's handle on a remote node of a _LoopNet: try_send (and
+    send, which never blocks here) hands an Envelope of wire bytes to the
+    remote node's reactor for the channel, on the remote node's thread;
+    set / get keep per-peer data (the consensus reactor's PeerState)."""
 
     def __init__(self, local, remote):
         self.id = remote.name
         self.local, self.remote = local, remote
-        self.open = True
+        self.open, self.data = True, {}
 
     def try_send(self, ch, msg, tctx=None):
         from cometbft_tpu_torch.p2p.base_reactor import Envelope
 
-        if not self.open:
+        back = self.remote.peers.get(self.local.name)
+        if not self.open or back is None:     # disconnected meanwhile
             return False
-        self.remote.inbox.put(Envelope(
-            src=self.remote.peers[self.local.name], message=bytes(msg),
-            channel_id=ch, tctx=tctx))
+        self.remote.inbox.put(Envelope(src=back, message=bytes(msg),
+                                       channel_id=ch, tctx=tctx))
         return True
+
+    def send(self, ch, msg, tctx=None):
+        return self.try_send(ch, msg, tctx)
+
+    def set(self, key, value):
+        self.data[key] = value
+
+    def get(self, key):
+        return self.data.get(key)
 
 
 class _LoopSwitch:
@@ -4177,14 +4204,21 @@ def _block_height(env):
 
 
 class _LoopNode:
-    def __init__(self, net, name, reactor):
+    """A node's reactors (the first is `reactor`), each receiving the
+    channels it declares, and a delivery thread."""
+
+    def __init__(self, net, name, *reactors):
         import queue
         import threading
 
-        self.net, self.name, self.reactor = net, name, reactor
+        self.net, self.name = net, name
+        self.reactor, self.reactors = reactors[0], reactors
+        self.by_channel = {d.id: r for r in reactors
+                           for d in r.get_channels()}
         self.peers, self.inbox, self.held = {}, queue.Queue(), None
         self.switch = _LoopSwitch(self)
-        reactor.set_switch(self.switch)
+        for r in reactors:
+            r.set_switch(self.switch)
         self.thread = threading.Thread(target=self._deliver, daemon=True,
                                        name=f"loop-{name}")
         self.thread.start()
@@ -4198,11 +4232,14 @@ class _LoopNode:
                 held, self.held = self.held, None
                 for e in sorted(held, key=lambda e: -_block_height(e)):
                     if e.src.open:
-                        self.reactor.receive(e)
+                        self._receive(e)
             elif self.held is not None and _block_height(env) is not None:
                 self.held.append(env)
             elif env.src.open:
-                self.reactor.receive(env)
+                self._receive(env)
+
+    def _receive(self, env):
+        self.by_channel.get(env.channel_id, self.reactor).receive(env)
 
     def hold(self):
         """Queue the blocks sent to this node (before it connects)."""
@@ -4219,32 +4256,39 @@ class _LoopNode:
 
 class _LoopNet:
     """Reactors joined in one process, every message as wire bytes
-    (blocksync/messages.py), a delivery thread a node: a test double of
-    the p2p switch, which the port does not have yet."""
+    (blocksync/messages.py, consensus/messages.py), a delivery thread a
+    node: a test double of the p2p switch, which the port does not have
+    yet."""
 
     def __init__(self):
         self.nodes = {}
 
-    def add(self, name, reactor):
-        self.nodes[name] = _LoopNode(self, name, reactor)
+    def add(self, name, *reactors):
+        self.nodes[name] = _LoopNode(self, name, *reactors)
         return self.nodes[name]
 
     def connect(self, a, b):
         a, b = self.nodes[a], self.nodes[b]
         a.peers[b.name], b.peers[a.name] = _LoopPeer(a, b), _LoopPeer(b, a)
-        a.reactor.add_peer(a.peers[b.name])
-        b.reactor.add_peer(b.peers[a.name])
+        for x, y in ((a, b), (b, a)):
+            for r in x.reactors:
+                r.init_peer(x.peers[y.name])
+        for x, y in ((a, b), (b, a)):
+            for r in x.reactors:
+                r.add_peer(x.peers[y.name])
 
     def disconnect(self, a, b, reason):
         for x, y in ((a, b), (b, a)):
             p = x.peers.pop(y.name, None)
             if p is not None:
                 p.open = False
-                x.reactor.remove_peer(p, reason)
+                for r in x.reactors:
+                    r.remove_peer(p, reason)
 
     def close(self):
         for n in self.nodes.values():
-            n.reactor.stop()
+            for r in n.reactors:
+                r.stop()
             n.inbox.put(None)
         for n in self.nodes.values():
             n.thread.join(10)
@@ -4717,7 +4761,676 @@ def phase_blocksync(state, torch):
     return out
 
 
-# -- phase 14: the engine configurations -------------------------------------
+# -- phase 14: consensus -----------------------------------------------------
+
+# validators of equal power, a node each: 11, not 16.  One interpreter
+# carries every node (a state thread, a delivery thread and three gossip
+# threads a peer: 341 threads at 11, 736 at 16), and on the H100 host 16
+# nodes did not pass height 3 in 45 s at any of the timeouts tried; 11
+# keeps every LastCommit at 8 signatures or more (+2/3 of 11 is 8)
+CS_NODES = 11
+CS_TOP = 20                    # step 1 runs every node past this height
+CS_TXS = 2000                  # kvstore transactions in node 0's mempool
+CS_DEFAULT_TOP = 8             # step 2 (the default knobs) runs this far
+CS_EVIDENCE_AFTER = 2          # step 3 runs this far past the evidence
+CS_TAMPER_AT = 6               # step 4's tampered votes from this height
+CS_TIMEOUT_S = 300.0
+
+
+def _cs_config():
+    """The consensus timeouts every step runs: CometBFT's defaults
+    (ConsensusConfig(): propose 3 s, prevote and precommit 1 s, each
+    0.5 s more a round, commit 1 s).  At test_consensus_config's 20-80
+    ms the in-process nodes' rounds time out faster than one
+    interpreter delivers their gossip, and no height is decided."""
+    from cometbft_tpu_torch.consensus import state as cstate
+    return cstate.ConsensusConfig()
+
+
+class _CsNet:
+    """CS_NODES port validators, each a full node on DEVICE: a kvstore
+    app behind a LocalClient, a CListMempool, state and block stores on
+    MemDB, an EvidencePool, an EventBus, a BlockExecutor, a FilePV, a
+    WAL (under wal_root, if given), a ConsensusState and a
+    ConsensusReactor on `verifier` (None: the process's
+    default_verifier); start() dials every node from every other over a
+    _LoopNet."""
+
+    def __init__(self, privs, verifier, wal_root=None):
+        import types
+
+        from cometbft_tpu_torch.abci import types as at
+        from cometbft_tpu_torch.abci.client import LocalClient
+        from cometbft_tpu_torch.apps.kvstore import KVStoreApplication
+        from cometbft_tpu_torch.consensus.reactor import ConsensusReactor
+        from cometbft_tpu_torch.consensus.state import ConsensusState
+        from cometbft_tpu_torch.consensus.wal import WAL
+        from cometbft_tpu_torch.evidence import EvidencePool
+        from cometbft_tpu_torch.mempool import CListMempool
+        from cometbft_tpu_torch.privval import FilePV
+        from cometbft_tpu_torch.state.execution import BlockExecutor
+        from cometbft_tpu_torch.state.state import make_genesis_state
+        from cometbft_tpu_torch.state.store import StateStore
+        from cometbft_tpu_torch.store.blockstore import BlockStore
+        from cometbft_tpu_torch.store.kv import MemDB
+        from cometbft_tpu_torch.types.events import EventBus
+        from cometbft_tpu_torch.types.genesis import (GenesisDoc,
+                                                      GenesisValidator)
+        from cometbft_tpu_torch.types.timestamp import Timestamp
+
+        genesis = GenesisDoc(
+            chain_id=CHAIN_ID, genesis_time=Timestamp(BS_T0, 0),
+            validators=[GenesisValidator(pub_key=p.pub_key(), power=10)
+                        for p in privs])
+        self.net, self.nodes, self.closed = _LoopNet(), [], False
+        for i, priv in enumerate(privs):
+            n = types.SimpleNamespace(name=f"v{i:02d}", priv=priv)
+            state = make_genesis_state(genesis)
+            n.app = KVStoreApplication()
+            n.client = LocalClient(n.app)
+            n.client.init_chain(at.InitChainRequest(chain_id=CHAIN_ID,
+                                                    initial_height=1))
+            n.mempool = CListMempool(n.client)
+            n.sstore = StateStore(MemDB())
+            n.sstore.bootstrap(state)
+            n.bstore = BlockStore(MemDB())
+            n.evpool = EvidencePool(MemDB(), n.sstore, n.bstore,
+                                    device=DEVICE)
+            n.bus = EventBus()
+            n.bus.start()
+            n.exe = BlockExecutor(n.sstore, n.client, n.mempool, n.evpool,
+                                  block_store=n.bstore, event_bus=n.bus,
+                                  device=DEVICE)
+            n.wal = None if wal_root is None else WAL(
+                os.path.join(wal_root, n.name, "wal"))
+            n.cs = ConsensusState(_cs_config(), state, n.exe, n.bstore,
+                                  wal=n.wal, priv_validator=FilePV(priv),
+                                  event_bus=n.bus, evidence_pool=n.evpool,
+                                  mempool=n.mempool, device=DEVICE)
+            n.reactor = ConsensusReactor(n.cs, device=DEVICE,
+                                         verifier=verifier)
+            self.nodes.append(n)
+
+    def start(self):
+        for n in self.nodes:
+            self.net.add(n.name, n.reactor).reactor.start()
+        names = [n.name for n in self.nodes]
+        for i, a in enumerate(names):
+            for b in names[i + 1:]:
+                self.net.connect(a, b)
+
+    def wait(self, cond, what, nodes=None, timeout=CS_TIMEOUT_S):
+        """Poll cond; raise what stopped a node's state machine."""
+        nodes = self.nodes if nodes is None else nodes
+        deadline = time.monotonic() + timeout
+        while not cond():
+            for n in nodes:
+                if n.cs.crash_error is not None:
+                    raise n.cs.crash_error
+            check(time.monotonic() < deadline, f"consensus: timed out "
+                  f"waiting for {what}; heights "
+                  f"{[n.cs.height for n in self.nodes]}")
+            time.sleep(0.02)
+
+    def run_past(self, height, nodes=None):
+        nodes = self.nodes if nodes is None else nodes
+        self.wait(lambda: min(n.cs.height for n in nodes) > height,
+                  f"every node past height {height}", nodes)
+
+    def close(self):
+        if self.closed:
+            return
+        self.closed = True
+        self.net.close()
+        for n in self.nodes:
+            n.bus.stop()
+            if n.wal is not None:
+                n.wal.close()
+
+    def same_blocks(self, label, nodes=None):
+        """Every node's blocks up to the lowest store height are one
+        chain; returns that height."""
+        nodes = self.nodes if nodes is None else nodes
+        top = min(n.bstore.height() for n in nodes)
+        for h in range(1, top + 1):
+            got = {n.bstore.load_block(h).hash() for n in nodes}
+            check(len(got) == 1, f"{label}: {len(got)} different blocks "
+                  f"at height {h}")
+        return top
+
+    def rounds(self, top):
+        """The commit round of each height 1..top, from node 0."""
+        return [self.nodes[0].bstore.load_seen_commit(h).round
+                for h in range(1, top + 1)]
+
+
+def _cs_privs():
+    from cometbft_tpu_torch.crypto import ed25519 as ed
+    return [ed.PrivKey.generate(_seed("consensus", i))
+            for i in range(CS_NODES)]
+
+
+def _cs_heights(cs_net, top, t0, commit_at):
+    """heights/s to `top`, per-height ms (p50, p90) from node 0's
+    commits, and the heights whose commit took more than one round."""
+    gaps = [(commit_at[h] - commit_at[h - 1]) * 1e3
+            for h in range(2, top + 1) if h in commit_at and h - 1 in commit_at]
+    rounds = cs_net.rounds(top)
+    return {"heights": top,
+            "heights_per_s": top / (commit_at[top] - t0),
+            "height_ms_p50": _pct(gaps, 50), "height_ms_p90": _pct(gaps, 90),
+            "multi_round_heights": [h for h, r in enumerate(rounds, 1)
+                                    if r > 0],
+            "commit_rounds": rounds}
+
+
+def _cs_timed_commits(node):
+    """Record perf_counter at each height node applies."""
+    commit_at = {}
+    apply = node.exe.apply_verified_block
+
+    def timed(st, bid, block, syncing_to_height=None):
+        out = apply(st, bid, block, syncing_to_height)
+        commit_at[block.header.height] = time.perf_counter()
+        return out
+    node.exe.apply_verified_block = timed
+    return commit_at
+
+
+def _cs_launch_run(state, torch):
+    """Steps 1, 4 and 5 in one network: cache off, the vote stream's
+    device threshold 1, CS_TXS transactions in node 0's mempool, every
+    node past CS_TOP; node 1 is sent tampered votes from CS_TAMPER_AT on
+    until one lands in a vote window; node 0 is then cut off and stopped
+    and its WAL read back.  The counts are set to 0 just before the
+    nodes start and read once every node, the stream and every window
+    have stopped."""
+    import shutil
+    import tempfile
+
+    from cometbft_tpu_torch.consensus import messages as cmsgs
+    from cometbft_tpu_torch.consensus import reactor as creactor
+    from cometbft_tpu_torch.consensus.round_types import STEP_NEW_HEIGHT
+    from cometbft_tpu_torch.consensus.wal import EndHeightMessage
+    from cometbft_tpu_torch.crypto import batch as cb
+    from cometbft_tpu_torch.crypto import dispatch as vd
+    from cometbft_tpu_torch.crypto import ed25519 as ed
+    from cometbft_tpu_torch.crypto import votestream as vs_mod
+    from cometbft_tpu_torch.libs import devprof, latledger
+    from cometbft_tpu_torch.p2p.base_reactor import Envelope
+    from cometbft_tpu_torch.types import block as tblock
+    from cometbft_tpu_torch.types import validation as val
+    from cometbft_tpu_torch.types import vote_set as vset_mod
+    from cometbft_tpu_torch.types.timestamp import Timestamp
+    from cometbft_tpu_torch.types.vote import PREVOTE_TYPE, Vote
+
+    privs = _cs_privs()
+    cache = ed._A_TABLE_CACHE
+    wal_root = tempfile.mkdtemp(prefix="cs-wal-")
+    windows, checks, tamper_adds, landed = [], [], [], []
+    tampered = {}                      # signature -> height
+    packs = state.setdefault("consensus_packs", {})
+    rec = {}
+    real_vc, real_dv = val.verify_commit, cb._device_verify
+
+    def counted_verify_commit(chain_id, vals, block_id, height, commit,
+                              device="cuda"):
+        n = sum(1 for s in commit.signatures
+                if s.block_id_flag != tblock.BLOCK_ID_FLAG_ABSENT)
+        checks.append((height, n, val._should_batch_verify(vals, commit)))
+        return real_vc(chain_id, vals, block_id, height, commit,
+                       device=device)
+
+    def kept_device_verify(pubkeys, parsed, device, packed=cb._NO_PACK):
+        """The program's pack, kept once per (A, R) width for the
+        kernels phase when the program accepted it."""
+        ok, verdicts = real_dv(pubkeys, parsed, device, packed=packed)
+        n = len(pubkeys)
+        if ok and n >= 2:
+            p = packed if packed is not cb._NO_PACK else ed.pack_rlc(
+                pubkeys, [b""] * n, [b""] * n, parsed=parsed)
+            if p is not None:
+                packs.setdefault((int(p[0].shape[-1]), int(p[1].shape[-1])),
+                                 p)
+        return ok, verdicts
+
+    ledger = latledger.LatLedgerRecorder(slo=latledger.SLOTracker(
+        on_burn=lambda *a: None))
+    prof = devprof.DevprofRecorder()
+    net = None
+    with vd.VerifyPipeline(device=DEVICE) as pipe:
+        sv = vs_mod.StreamingVerifier(device_threshold=1, pipeline=pipe,
+                                      device=DEVICE)
+        sv.start()
+        try:
+            t0 = time.perf_counter()
+            check(sv.warmed.wait(timeout=900) and sv.warm_error is None,
+                  f"consensus: the stream's pre-warm: {sv.warm_error!r}")
+            rec["prewarm_seconds"] = time.perf_counter() - t0
+            real_submit = pipe.submit
+
+            def submit(items, **kw):
+                items = list(items)
+                h = real_submit(items, **kw)
+                if kw.get("subsystem") == "consensus":
+                    windows.append((items, h))
+                    if any(sig in tampered for _, _, sig in items):
+                        landed.append(len(windows) - 1)
+                return h
+            pipe.submit = submit
+            net = _CsNet(privs, sv, wal_root)
+            nodes = net.nodes
+            target, liar = nodes[1], nodes[2]
+            for i in range(CS_TXS):
+                nodes[0].mempool.check_tx(b"cs%05d=v%d" % (i, i % 97))
+            commit_at = _cs_timed_commits(nodes[0])
+
+            def inject(kind, cs, data):
+                """On node 1 entering a height from CS_TAMPER_AT on, until
+                one lands in a window: a nil prevote for (height, 0) of
+                validator 2, its signature's first bit flipped, sent by
+                validator 2's peer handle."""
+                if kind != "new_round_step" or cs.step != STEP_NEW_HEIGHT \
+                        or cs.height < CS_TAMPER_AT or landed:
+                    return
+                addr = liar.priv.pub_key().address()
+                idx, _ = cs.validators.get_by_address(addr)
+                v = Vote(type=PREVOTE_TYPE, height=cs.height, round=0,
+                         block_id=tblock.BlockID(),
+                         timestamp=Timestamp(BS_T0 + cs.height, len(tampered)),
+                         validator_address=addr, validator_index=idx)
+                sig = liar.priv.sign(v.sign_bytes(CHAIN_ID))
+                v.signature = bytes([sig[0] ^ 1]) + sig[1:]
+                tampered[v.signature] = cs.height
+                node = net.net.nodes[target.name]
+                node.inbox.put(Envelope(
+                    src=node.peers[liar.name],
+                    channel_id=creactor.VOTE_CHANNEL,
+                    message=cmsgs.wrap_message(cmsgs.VoteMessage(v))))
+            target.cs.listeners.append(inject)
+            preverify = target.reactor._preverify_vote
+
+            def held(vote, tctx=None):
+                """Node 1's reactor hands a tampered vote to its state
+                machine once the vote's window has resolved, as a state
+                thread that lags the verifier takes it (one that takes
+                it at once cancels the pending verdict and verifies the
+                vote itself)."""
+                preverify(vote, tctx=tctx)
+                if vote.signature in tampered and vote.preverified:
+                    try:
+                        vote.preverified.future.result(timeout=600)
+                    except Exception:                   # noqa: BLE001
+                        pass            # the window checks report it
+            target.reactor._preverify_vote = held
+            try_add = target.cs._try_add_vote
+
+            def tracked(vote, peer_id):
+                r = try_add(vote, peer_id)
+                if vote.signature in tampered:
+                    tamper_adds.append((vote.height, r))
+                return r
+            target.cs._try_add_vote = tracked
+
+            val.verify_commit, cb._device_verify = (counted_verify_commit,
+                                                    kept_device_verify)
+            latledger.set_recorder(ledger)
+            devprof.set_recorder(prof)
+            vset_mod.reset_verify_paths()
+            with _persig(torch) as persig:
+                _zero_counts()
+                h0 = cache.hits
+                t_start = time.perf_counter()
+                net.start()
+                net.run_past(CS_TOP)
+                t_end = time.perf_counter()
+                # step 5: node 0 cut off from every peer and stopped, its
+                # WAL read back
+                n0 = nodes[0]
+                for other in nodes[1:]:
+                    net.net.disconnect(net.net.nodes[n0.name],
+                                       net.net.nodes[other.name], "stopped")
+                n0.reactor.stop()
+                rec["node0_height"] = n0.bstore.height()
+                rec["wal_end_heights"] = sorted(
+                    m.msg.height for m in n0.wal.replay()
+                    if isinstance(m.msg, EndHeightMessage))
+                net.close()
+                sv.stop()
+                for _, h in windows:
+                    h.result(timeout=600)
+                got = _counts()
+                hits = cache.hits - h0
+        finally:
+            val.verify_commit, cb._device_verify = real_vc, real_dv
+            latledger.set_recorder(None)
+            devprof.set_recorder(None)
+            if net is not None:
+                net.close()
+            sv.stop()
+            shutil.rmtree(wal_root, ignore_errors=True)
+    rec.update(net=net, windows=windows, checks=checks, got=got, hits=hits,
+               persig=persig, tampered=tampered, landed=landed,
+               tamper_adds=tamper_adds, seconds=t_end - t_start,
+               t_start=t_start, commit_at=commit_at, ledger=ledger,
+               prof=prof, paths=vset_mod.verify_paths(), stream=sv)
+    persig_items = state.setdefault("consensus_persig", {})
+    for items, h in windows:
+        ok, verdicts = h.result(timeout=0)
+        if len(items) == 1 or not all(verdicts):
+            persig_items.setdefault(len(items), tuple(zip(*items)))
+    return rec
+
+
+def _cs_check_launch_run(state, rec, out):
+    """Steps 1, 4 and 5's checks and figures."""
+    import collections
+
+    from cometbft_tpu_torch.crypto import batch as cb
+    from cometbft_tpu_torch.libs import devprof
+
+    net = rec["net"]
+    top = net.same_blocks("launch run")
+    check(top >= CS_TOP, f"launch run: the nodes hold {top} blocks")
+    # each tx committed once, every app hash the tx count
+    txs = [tx for h in range(1, top + 1)
+           for tx in net.nodes[1].bstore.load_block(h).data.txs]
+    check(len(txs) == CS_TXS and len(set(txs)) == CS_TXS,
+          f"launch run: {len(txs)} txs committed, {len(set(txs))} distinct")
+    want_hash = CS_TXS.to_bytes(8, "big")
+    check(all(n.app.app_hash == want_hash and
+              n.cs.state.app_hash == want_hash for n in net.nodes),
+          f"launch run: app hashes "
+          f"{sorted({n.app.app_hash.hex() for n in net.nodes})}")
+    # every LastCommit check one RLC program
+    checks = rec["checks"]
+    check(checks and all(batch and n >= cb.DEVICE_THRESHOLD
+                         for _, n, batch in checks),
+          f"launch run: LastCommit checks (height, signatures, batched) "
+          f"{[c for c in checks if not c[2] or c[1] < cb.DEVICE_THRESHOLD]}")
+    check(min(n for _, n, _ in checks) >= 2 * CS_NODES // 3 + 1,
+          "launch run: a LastCommit below +2/3")
+    # every vote window one RLC program (two votes and more), a window
+    # of one K1 + K14, a window with a rejected vote one K1 + K14 more
+    sizes, n_rlc, n_persig, rejected = [], 0, 0, []
+    for items, h in rec["windows"]:
+        check(h.path == "device", f"launch run: a vote window resolved "
+              f"on {h.path}")
+        ok, verdicts = h.result(timeout=0)
+        n = len(items)
+        sizes.append(n)
+        n_rlc += n >= 2
+        n_persig += n == 1 or not all(verdicts)
+        if not all(verdicts):
+            rejected.append((n, [sig in rec["tampered"]
+                                 for (_, _, sig), v in zip(items, verdicts)
+                                 if not v]))
+    want = _merge(_rlc_want(rec["hits"], len(checks) + n_rlc),
+                  *[PERSIG_LAUNCHES] * n_persig)
+    _want_launches({k: v for k, v in rec["got"].items() if v}, want,
+                   "launch run")
+    check(rec["persig"].calls == n_persig, f"launch run: "
+          f"{rec['persig'].calls} localizations, not {n_persig}")
+    sv = rec["stream"]
+    check(sv.device_fallbacks == sv.build_errors == 0 and
+          sv.path_flushes["host"] == 0,
+          f"launch run: stream fallbacks {sv.device_fallbacks}, build "
+          f"errors {sv.build_errors}, flushes {dict(sv.path_flushes)}")
+    state["consensus_launches"] = rec["got"]
+    # step 4: the tampered vote's window, localized once; not added
+    hit = [(n, bad) for n, bad in rejected if any(bad)]
+    check(len(hit) == 1 and all(hit[0][1]) and len(rejected) == 1,
+          f"tampered vote: rejected windows (size, tampered?) {rejected}")
+    check(rec["tamper_adds"] and not any(r for _, r in rec["tamper_adds"]),
+          f"tampered vote: add results {rec['tamper_adds']}")
+    # step 5: node 0's WAL ends every height it committed
+    check(rec["wal_end_heights"] == list(range(1, rec["node0_height"] + 1)),
+          f"WAL: end heights {rec['wal_end_heights'][:5]}... for "
+          f"{rec['node0_height']} heights")
+    rows = [r for r in rec["ledger"].rows() if r["consumer"] == "consensus"]
+    segs = sorted({k for r in rows for k in r["segs"]})
+    occ = devprof.occupancy_summary(rec["prof"].snapshot())
+    paths = dict(sum((n.reactor.vote_paths for n in net.nodes),
+                     collections.Counter()))
+    out["launch_run"] = {
+        "seconds": rec["seconds"], "prewarm_seconds": rec["prewarm_seconds"],
+        **_cs_heights(net, CS_TOP, rec["t_start"], rec["commit_at"]),
+        "txs": CS_TXS, "app_hash": want_hash.hex(),
+        "lastcommit_checks": len(checks),
+        "lastcommit_signatures": [min(n for _, n, _ in checks),
+                                  max(n for _, n, _ in checks)],
+        "vote_windows": len(sizes), "vote_window_sizes": {
+            str(k): sizes.count(k) for k in sorted(set(sizes))},
+        "rlc_programs": len(checks) + n_rlc, "localizations": n_persig,
+        "a_table_hits": rec["hits"],
+        "launches": {k: v for k, v in rec["got"].items() if v},
+        "votes_streamed": rec["paths"].get("stream", 0),
+        "votes_inline": rec["paths"].get("inline", 0),
+        "reactor_vote_paths": paths,
+        "devprof_busy_share": occ["device_occupancy_fraction"],
+        "devprof_idle_seconds": occ["idle_cause_seconds"],
+        "consensus_lane": {
+            "windows": len(rows),
+            "wall_ms_p50": _pct([r["wall"] * 1e3 for r in rows], 50),
+            "wall_ms_p99": _pct([r["wall"] * 1e3 for r in rows], 99),
+            "segments_ms_p50": {k: _pct([r["segs"][k] * 1e3 for r in rows
+                                         if k in r["segs"]], 50)
+                                for k in segs}}}
+    emit({"consensus_step": "launch_run", "card": state["card"],
+          **out["launch_run"]})
+    items = rec["windows"][rec["landed"][0]][0]
+    bad_sigs = [sig for _, _, sig in items if sig in rec["tampered"]]
+    out["tampered_vote"] = {
+        "height": rec["tampered"][bad_sigs[0]],
+        "sent": len(rec["tampered"]), "window_size": hit[0][0],
+        "localized_windows_of_that_size": rec["persig"].widths.count(
+            hit[0][0]), "add_results": rec["tamper_adds"]}
+    emit({"consensus_step": "tampered_vote", "card": state["card"],
+          **out["tampered_vote"]})
+    out["wal"] = {"node": "v00", "heights": rec["node0_height"],
+                  "end_height_messages": len(rec["wal_end_heights"])}
+    emit({"consensus_step": "wal", "card": state["card"], **out["wal"]})
+
+
+def _cs_default_run(state, out):
+    """Step 2: the default knobs (the verdict cache on, shared by every
+    in-process node; default_verifier at 2 ms and 256), CS_DEFAULT_TOP
+    heights."""
+    from cometbft_tpu_torch.crypto import sigcache
+    from cometbft_tpu_torch.crypto import votestream as vs_mod
+    from cometbft_tpu_torch.types import vote_set as vset_mod
+
+    sigcache.set_enabled(True)
+    sigcache.reset()
+    dv = vs_mod.default_verifier(DEVICE)
+    check(dv.warmed.wait(timeout=900) and dv.warm_error is None,
+          f"default pre-warm: {dv.warm_error!r}")
+    net = _CsNet(_cs_privs(), None)
+    commit_at = _cs_timed_commits(net.nodes[0])
+    vset_mod.reset_verify_paths()
+    try:
+        _zero_counts()
+        t0 = time.perf_counter()
+        net.start()
+        net.run_past(CS_DEFAULT_TOP)
+        got = _counts()
+        stats = sigcache.cache().stats()
+    finally:
+        net.close()
+        dv.stop()
+        sigcache.reset()
+        sigcache.set_enabled(False)
+    net.same_blocks("default knobs")
+    out["default_knobs"] = {
+        "label": "in-process nodes on one shared verdict cache and "
+                 "verifier: not per-node figures",
+        "flush_ms": dv.flush_interval * 1e3,
+        "device_threshold": dv.device_threshold,
+        **_cs_heights(net, CS_DEFAULT_TOP, t0, commit_at),
+        "launches": {k: v for k, v in got.items() if v},
+        "stream_flushes_by_path": dict(dv.path_flushes),
+        "stream_votes_by_path": dict(dv.path_votes),
+        "votes_streamed": vset_mod.verify_paths().get("stream", 0),
+        "votes_inline": vset_mod.verify_paths().get("inline", 0),
+        "cache_hits": stats["hits"], "cache_misses": stats["misses"]}
+    emit({"consensus_step": "default_knobs", "card": state["card"],
+          **out["default_knobs"]})
+
+
+def _cs_byzantine(node):
+    """tests/test_byzantine.py's _make_byzantine on a port node: after
+    its honest prevote for a block, a conflicting prevote signed with the
+    raw key (the FilePV would refuse), sent to every peer."""
+    from cometbft_tpu_torch.consensus import messages as cmsgs
+    from cometbft_tpu_torch.consensus import reactor as creactor
+    from cometbft_tpu_torch.types import block as tblock
+    from cometbft_tpu_torch.types.timestamp import Timestamp
+    from cometbft_tpu_torch.types.vote import PREVOTE_TYPE, Vote
+
+    cs = node.cs
+    sign_add, try_add = cs._sign_add_vote, cs._try_add_vote
+
+    def byz_sign_add_vote(msg_type, hash_, header, block=None):
+        sign_add(msg_type, hash_, header, block)
+        if msg_type != PREVOTE_TYPE or not hash_:
+            return
+        addr = cs.priv_validator_pub_key.address()
+        idx, _ = cs.validators.get_by_address(addr)
+        other = _seed("equivocation", cs.height, cs.round)
+        v = Vote(type=PREVOTE_TYPE, height=cs.height, round=cs.round,
+                 block_id=tblock.BlockID(other, tblock.PartSetHeader(
+                     1, hashlib.sha256(other).digest())),
+                 timestamp=Timestamp.now(), validator_address=addr,
+                 validator_index=idx)
+        v.signature = node.priv.sign(v.sign_bytes(CHAIN_ID))
+        msg = cmsgs.wrap_message(cmsgs.VoteMessage(v))
+        for peer in node.reactor.switch.peers.list():
+            peer.try_send(creactor.VOTE_CHANNEL, msg)
+
+    def byz_try_add_vote(vote, peer_id):
+        try:
+            return try_add(vote, peer_id)
+        except Exception:                          # noqa: BLE001
+            return False        # its own equivocation gossiped back
+
+    cs._sign_add_vote, cs._try_add_vote = byz_sign_add_vote, byz_try_add_vote
+
+
+def _cs_evidence_run(state, out):
+    """Step 3: validator 0 double-signs its prevotes; its
+    DuplicateVoteEvidence is committed, every node validates the block
+    holding it and marks it committed in its pool, and the chain goes
+    CS_EVIDENCE_AFTER heights further.  Cache off, threshold 1."""
+    from cometbft_tpu_torch.crypto import dispatch as vd
+    from cometbft_tpu_torch.crypto import votestream as vs_mod
+    from cometbft_tpu_torch.types.evidence import DuplicateVoteEvidence
+
+    byz = _cs_privs()[0].pub_key().address()
+    found = {}
+
+    def evidence(n):
+        for h in range(1, n.bstore.height() + 1):
+            for ev in n.bstore.load_block(h).evidence:
+                if isinstance(ev, DuplicateVoteEvidence) and \
+                        ev.vote_a.validator_address == byz:
+                    return h, ev
+        return None
+
+    with vd.VerifyPipeline(device=DEVICE) as pipe:
+        sv = vs_mod.StreamingVerifier(device_threshold=1, pipeline=pipe,
+                                      device=DEVICE)
+        sv.start()
+        net = _CsNet(_cs_privs(), sv)
+        honest = net.nodes[1:]
+        _cs_byzantine(net.nodes[0])
+        try:
+            t0 = time.perf_counter()
+            net.start()
+
+            def landed():
+                for n in honest:
+                    if n.name not in found:
+                        e = evidence(n)
+                        if e is None:
+                            return False
+                        found[n.name] = e
+                return True
+            net.wait(landed, "committed duplicate-vote evidence", honest)
+            at = max(h for h, _ in found.values())
+            seconds = time.perf_counter() - t0
+            net.run_past(at + CS_EVIDENCE_AFTER, honest)
+        finally:
+            net.close()
+            sv.stop()
+    top = net.same_blocks("equivocation", honest)
+    h, ev = found[honest[0].name]
+    check(all(e[0] == h and e[1].hash() == ev.hash() for e in found.values()),
+          f"equivocation: the nodes committed the evidence at "
+          f"{sorted({e[0] for e in found.values()})}")
+    check(all(n.evpool._is_committed(ev) for n in honest) and
+          top >= h + CS_EVIDENCE_AFTER,
+          f"equivocation: evidence committed in {sum(n.evpool._is_committed(ev) for n in honest)} pools, chain at {top}")
+    out["equivocation"] = {
+        "evidence_height": h, "vote_height": ev.vote_a.height,
+        "seconds_to_evidence": seconds, "heights": top,
+        "evidence_hash": ev.hash().hex(),
+        "pools_marked_committed": len(honest)}
+    emit({"consensus_step": "equivocation", "card": state["card"],
+          **out["equivocation"]})
+
+
+def phase_consensus(state, torch):
+    """Consensus (consensus/: ConsensusState, ConsensusReactor, the WAL
+    and the timeout ticker) committing kvstore blocks among CS_NODES (11)
+    live in-process validators on the card, each a full node (_CsNet)
+    over the loopback double (_LoopNet), at CometBFT's default timeouts
+    (_cs_config):
+    1. launch run: the verdict cache off and the vote stream's device
+       threshold 1 (every flush a window on the pipeline's consensus
+       lane), 2,000 kvstore transactions in node 0's mempool, every node
+       past height 20: the same block hashes on every node, each
+       transaction committed once, every app hash the transaction count;
+       every LastCommit check (8-11 signatures, at DEVICE_THRESHOLD 8 or
+       over) one RLC program, every vote window of two votes and more
+       one, a window of one vote one K1 + K14, and the K1-K4 and K14
+       launches exactly what those programs account for; heights/s,
+       per-height p50 / p90, the heights of more than one round, votes
+       streamed and verified inline, launches by kernel, devprof's busy
+       share, the consensus lane's latency-ledger cuts;
+    2. default knobs: the same network with the verdict cache on and
+       default_verifier (2 ms, 256): launches and heights/s, in-process
+       figures on one shared cache;
+    3. equivocation: validator 0 double-signs its prevotes; its
+       DuplicateVoteEvidence is committed, every honest node validates
+       it and marks it committed, and the chain goes on;
+    4. tampered vote (in step 1's network): from height 6, node 1 is
+       sent a nil prevote of validator 2 with its signature's first bit
+       flipped, at each new height until one lands in a vote window:
+       that window is the run's one rejected window, localized by one
+       K1 + K14 (in step 1's count), its other votes accepted, and the
+       tampered vote is not added;
+    5. WAL (step 1's network): node 0 stopped, its WAL holds one
+       EndHeightMessage for each height it committed.
+    Each step on a line of its own (`consensus_step`) with the card's
+    name and power limit."""
+    out = {"validators": CS_NODES, "config": "CometBFT default timeouts",
+           "card": state["card"]}
+    t0 = time.perf_counter()
+    rec = _cs_launch_run(state, torch)
+    _cs_check_launch_run(state, rec, out)
+    _cs_default_run(state, out)
+    _cs_evidence_run(state, out)
+    launched = {k for k, v in state["consensus_launches"].items() if v}
+    check(launched == DEFAULT_KERNELS,
+          f"the consensus path launched {sorted(launched)}")
+    out["launches"] = {k: v for k, v in state["consensus_launches"].items()
+                       if v}
+    out["wall_seconds"] = time.perf_counter() - t0
+    _zero_counts()
+    return out
+
+
+# -- phase 15: the engine configurations -------------------------------------
 
 def phase_engines(state, torch):
     """Each configuration drives the commit, the window and (where
@@ -4767,7 +5480,7 @@ def phase_engines(state, torch):
     return {"configurations": rows}
 
 
-# -- phase 15: kernel vs plain -----------------------------------------------
+# -- phase 16: kernel vs plain -----------------------------------------------
 
 def _hostile_words(state, torch):
     """K1 input at W = 8192: the phase-4 public keys (two of them
@@ -5004,6 +5717,24 @@ def phase_kernels(state, torch):
                                  mags, negs))
         sr_folds.append((label, all(_sr_oracle(state, tuple(zip(*items)))),
                          *parts))
+    # the consensus phase's RLC programs (LastCommit checks and vote
+    # windows) at the (A, R) widths the packs above do not have: K1-K3
+    # on both sides, K4 on their partials (each pack's program accepted)
+    cs_folds = []
+    for (wa, wr), packed in sorted(state.get("consensus_packs", {}).items()):
+        if (wa, wr) in held:
+            continue
+        held.add((wa, wr))
+        label = f"consensus A {wa}, R {wr}"
+        t = convert.packed_from_numpy(packed, DEVICE)
+        parts = []
+        for side, (w, mags, negs) in (("A", (t[0], t[2], t[3])),
+                                      ("R", (t[1], t[4], t[5]))):
+            pt, _ = k1_case(f"{label} {side}", w)
+            k2_case(f"{label} {side}", pt)
+            parts.append(k3_case(f"{label} {side}", cm.table17_neg(pt),
+                                 mags, negs))
+        cs_folds.append((label, True, *parts))
     cases["ed25519_decompress"] = k1
     cases["ed25519_table17_neg"] = k2
     cases["ed25519_msm_window_major"] = k3
@@ -5033,7 +5764,8 @@ def phase_kernels(state, torch):
              main_k3[1]["partials"]),
             ("window reject", False, bad_pa, bad_pr)):
         k4_case(label, want, pa, pr)
-    for label, want, pa, pr in sr_folds + _fold_sets(state, torch):
+    for label, want, pa, pr in sr_folds + cs_folds + _fold_sets(state,
+                                                                torch):
         k4_case(label, want, pa, pr)
     cases["ed25519_fold_verify"] = k4
     cases["sha512_blocks"], cases["sha256_blocks"] = _sha_cases(state, torch)
@@ -5397,6 +6129,13 @@ def _persig_cases(state, torch):
             runs.append((f"sr25519, live {width}", tuple(arrays), [
                 bool(v) and w for v, w in
                 zip(valid, _sr_oracle(state, tuple(zip(*items))))]))
+    for width, items in sorted(state.get("consensus_persig", {}).items()):
+        # the consensus phase's localizations (windows of one vote, the
+        # tampered vote's window) at the live widths the runs lack
+        if width not in held:
+            held.add(width)
+            runs.append((f"consensus, live {width}",
+                         *packed(items, live=True)))
     out = []
     for label, arrays, want in runs:
         aw, rw, st, ht = convert.batch_from_numpy(*arrays, DEVICE)
@@ -5781,7 +6520,7 @@ def _raw_secp(torch, name, args, step=None):
     return launch
 
 
-# -- phase 16: timing -------------------------------------------------------
+# -- phase 17: timing -------------------------------------------------------
 
 def _time(torch, fn, args, reps, inner=1, warm=True):
     """Median over reps of the CUDA-event time of `inner` calls made back
@@ -6073,6 +6812,7 @@ def phase_timing(state, torch):
                    "votes": state["votes_launches"][name],
                    "light": state["light_launches"].get(name, 0),
                    "blocksync": state["blocksync_launches"].get(name, 0),
+                   "consensus": state["consensus_launches"].get(name, 0),
                    **{cfg: c[name]
                       for cfg, c in state["engine_launches"].items()}}
         if name in DEFAULT_KERNELS:
@@ -6085,7 +6825,8 @@ def phase_timing(state, torch):
             launches = sum(v for k, v in by_path.items()
                            if k not in ("main", "mesh", "hash", "secp",
                                         "sr25519", "sigcache", "pipeline",
-                                        "votes", "light", "blocksync"))
+                                        "votes", "light", "blocksync",
+                                        "consensus"))
         source, replaces = KERNELS[name]
         rows.append({"name": name, "route": "cuda", "source": CSRC + source,
                      "replaces": replaces, "launches": launches,

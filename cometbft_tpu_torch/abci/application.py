@@ -12,8 +12,7 @@ from . import types as at
 
 
 class Application:
-    """The ABCI++ surface, without ExtendVote and VerifyVoteExtension:
-    nothing in the port extends votes yet."""
+    """The ABCI++ surface."""
 
     # info/query connection
     def info(self, req: at.InfoRequest) -> at.InfoResponse: ...
@@ -31,6 +30,10 @@ class Application:
                          ) -> at.ProcessProposalResponse: ...
     def finalize_block(self, req: at.FinalizeBlockRequest
                        ) -> at.FinalizeBlockResponse: ...
+    def extend_vote(self, req: at.ExtendVoteRequest
+                    ) -> at.ExtendVoteResponse: ...
+    def verify_vote_extension(self, req: at.VerifyVoteExtensionRequest
+                              ) -> at.VerifyVoteExtensionResponse: ...
     def commit(self, req: at.CommitRequest) -> at.CommitResponse: ...
 
     # state sync connection
@@ -75,6 +78,13 @@ class BaseApplication(Application):
     def finalize_block(self, req):
         return at.FinalizeBlockResponse(
             tx_results=[at.ExecTxResult() for _ in req.txs])
+
+    def extend_vote(self, req):
+        return at.ExtendVoteResponse()
+
+    def verify_vote_extension(self, req):
+        return at.VerifyVoteExtensionResponse(
+            status=at.VERIFY_VOTE_EXT_ACCEPT)
 
     def commit(self, req):
         return at.CommitResponse()

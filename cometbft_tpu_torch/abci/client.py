@@ -72,6 +72,10 @@ class ABCIClient:
     def query(self, req) -> at.QueryResponse:
         return self._do("query", req)
 
+    def flush(self) -> None:
+        """Drain buffered requests: the in-process client buffers none
+        (the JAX package's LocalClient answers Flush with nothing)."""
+
     def check_tx(self, req) -> at.CheckTxResponse:
         return self._do("check_tx", req)
 
@@ -89,6 +93,12 @@ class ABCIClient:
 
     def finalize_block(self, req) -> at.FinalizeBlockResponse:
         return self._do("finalize_block", req)
+
+    def extend_vote(self, req) -> at.ExtendVoteResponse:
+        return self._do("extend_vote", req)
+
+    def verify_vote_extension(self, req) -> at.VerifyVoteExtensionResponse:
+        return self._do("verify_vote_extension", req)
 
     def commit(self) -> at.CommitResponse:
         return self._do("commit", at.CommitRequest())

@@ -4,9 +4,9 @@
 kvstore application use.
 
 Every message is a plain dataclass with to_proto/from_proto.  Echo,
-Flush, ExtendVote, VerifyVoteExtension and the Request/Response oneof
-wrappers of the socket protocol are not ported: the port runs its
-application in process (abci/client.LocalClient).
+Flush and the Request/Response oneof wrappers of the socket protocol
+are not ported: the port runs its application in process
+(abci/client.LocalClient).
 """
 
 from __future__ import annotations
@@ -35,6 +35,9 @@ APPLY_CHUNK_REJECT_SNAPSHOT = 5
 
 PROCESS_PROPOSAL_ACCEPT = 1
 PROCESS_PROPOSAL_REJECT = 2
+
+VERIFY_VOTE_EXT_ACCEPT = 1
+VERIFY_VOTE_EXT_REJECT = 2
 
 MISBEHAVIOR_DUPLICATE_VOTE = 1
 MISBEHAVIOR_LIGHT_CLIENT_ATTACK = 2
@@ -1154,6 +1157,132 @@ class FinalizeBlockResponse:
                 m.consensus_param_updates = r.read_bytes()
             elif f == 5 and w == pw.BYTES:
                 m.app_hash = r.read_bytes()
+            else:
+                r.skip(w)
+        return m
+
+
+@dataclass
+class ExtendVoteRequest:
+    hash: bytes = b""
+    height: int = 0
+    time: Timestamp = field(default_factory=Timestamp.zero)
+    txs: list = field(default_factory=list)
+    proposed_last_commit: CommitInfo = field(default_factory=CommitInfo)
+    misbehavior: list = field(default_factory=list)
+    next_validators_hash: bytes = b""
+    proposer_address: bytes = b""
+
+    def to_proto(self) -> bytes:
+        w = (pw.Writer().bytes_field(1, self.hash).int_field(2, self.height)
+             .message_field(3, self.time.to_proto()))
+        for tx in self.txs:
+            w.bytes_field(4, tx)
+        w.message_field(5, self.proposed_last_commit.to_proto())
+        for mb in self.misbehavior:
+            w.message_field(6, mb.to_proto())
+        w.bytes_field(7, self.next_validators_hash)
+        w.bytes_field(8, self.proposer_address)
+        return w.bytes()
+
+    @staticmethod
+    def from_proto(p: bytes) -> "ExtendVoteRequest":
+        r = pw.Reader(p)
+        m = ExtendVoteRequest()
+        while not r.at_end():
+            f, w = r.read_tag()
+            if f == 1 and w == pw.BYTES:
+                m.hash = r.read_bytes()
+            elif f == 2 and w == pw.VARINT:
+                m.height = r.read_int()
+            elif f == 3 and w == pw.BYTES:
+                m.time = Timestamp.from_proto(r.read_bytes())
+            elif f == 4 and w == pw.BYTES:
+                m.txs.append(r.read_bytes())
+            elif f == 5 and w == pw.BYTES:
+                m.proposed_last_commit = CommitInfo.from_proto(r.read_bytes())
+            elif f == 6 and w == pw.BYTES:
+                m.misbehavior.append(Misbehavior.from_proto(r.read_bytes()))
+            elif f == 7 and w == pw.BYTES:
+                m.next_validators_hash = r.read_bytes()
+            elif f == 8 and w == pw.BYTES:
+                m.proposer_address = r.read_bytes()
+            else:
+                r.skip(w)
+        return m
+
+
+@dataclass
+class VerifyVoteExtensionRequest:
+    hash: bytes = b""
+    validator_address: bytes = b""
+    height: int = 0
+    vote_extension: bytes = b""
+
+    def to_proto(self) -> bytes:
+        return (pw.Writer().bytes_field(1, self.hash)
+                .bytes_field(2, self.validator_address)
+                .int_field(3, self.height)
+                .bytes_field(4, self.vote_extension).bytes())
+
+    @staticmethod
+    def from_proto(p: bytes) -> "VerifyVoteExtensionRequest":
+        r = pw.Reader(p)
+        m = VerifyVoteExtensionRequest()
+        while not r.at_end():
+            f, w = r.read_tag()
+            if f == 1 and w == pw.BYTES:
+                m.hash = r.read_bytes()
+            elif f == 2 and w == pw.BYTES:
+                m.validator_address = r.read_bytes()
+            elif f == 3 and w == pw.VARINT:
+                m.height = r.read_int()
+            elif f == 4 and w == pw.BYTES:
+                m.vote_extension = r.read_bytes()
+            else:
+                r.skip(w)
+        return m
+
+
+@dataclass
+class ExtendVoteResponse:
+    vote_extension: bytes = b""
+
+    def to_proto(self) -> bytes:
+        return pw.Writer().bytes_field(1, self.vote_extension).bytes()
+
+    @staticmethod
+    def from_proto(p: bytes) -> "ExtendVoteResponse":
+        r = pw.Reader(p)
+        m = ExtendVoteResponse()
+        while not r.at_end():
+            f, w = r.read_tag()
+            if f == 1 and w == pw.BYTES:
+                m.vote_extension = r.read_bytes()
+            else:
+                r.skip(w)
+        return m
+
+
+@dataclass
+class VerifyVoteExtensionResponse:
+    status: int = 0
+
+    @property
+    def is_accepted(self) -> bool:
+        return self.status == VERIFY_VOTE_EXT_ACCEPT
+
+    def to_proto(self) -> bytes:
+        return pw.Writer().int_field(1, self.status).bytes()
+
+    @staticmethod
+    def from_proto(p: bytes) -> "VerifyVoteExtensionResponse":
+        r = pw.Reader(p)
+        m = VerifyVoteExtensionResponse()
+        while not r.at_end():
+            f, w = r.read_tag()
+            if f == 1 and w == pw.VARINT:
+                m.status = r.read_int()
             else:
                 r.skip(w)
         return m

@@ -1,24 +1,59 @@
-"""Duplicate-vote evidence verification (the port's copy of
-`cometbft_tpu.evidence.verify.verify_duplicate_vote`; CometBFT
-internal/evidence/verify.go).
+"""Evidence verification (the port's copy of
+`cometbft_tpu.evidence.verify`; CometBFT internal/evidence/verify.go).
 
-Checks that the evidence is internally consistent and signed by the
-accused validator.  Both signatures verify through
-crypto/batch.safe_verify under the "evidence" consumer, so a vote that
-consensus already verified is a verdict-cache hit.  The age checks
-against stored state and light-client attacks wait for the port's state
-and light types.
+Checks that submitted evidence is (a) not expired under the consensus
+params' age limits, (b) internally consistent, and (c) signed by the
+accused validators.  A duplicate vote's two signatures verify through
+crypto/batch.safe_verify on the host, under the "evidence" consumer, so
+a vote that consensus already verified is a verdict-cache hit.  A
+light-client attack's conflicting commit verifies through
+types/validation.verify_commit_light_trusting on `device` (default
+"cuda": the RLC program on K1-K4 at DEVICE_THRESHOLD signatures and
+more); without a card it raises unless given device="cpu".
 """
 
 from __future__ import annotations
 
 from ..crypto import sigcache
 from ..crypto.batch import safe_verify
-from ..types.evidence import DuplicateVoteEvidence
+from ..types.evidence import (
+    DuplicateVoteEvidence, LightClientAttackEvidence,
+)
 
 
 class EvidenceVerificationError(Exception):
     pass
+
+
+def verify_evidence(ev, state, state_store, block_store,
+                    device="cuda") -> None:
+    """verify.go:31 verify()."""
+    height = state.last_block_height
+    ev_params = state.consensus_params.evidence
+
+    age_num_blocks = height - ev.height()
+    if age_num_blocks > ev_params.max_age_num_blocks:
+        # expired by blocks; also expired by time?
+        age_ns = state.last_block_time.diff_ns(ev.time())
+        if age_ns > ev_params.max_age_duration_ns:
+            raise EvidenceVerificationError(
+                f"evidence from height {ev.height()} is too old: "
+                f"{age_num_blocks} blocks, {age_ns / 1e9:.0f}s")
+
+    if isinstance(ev, DuplicateVoteEvidence):
+        header = _load_header(block_store, ev.height())
+        if header is not None and \
+                header.time.diff_ns(ev.time()) != 0:
+            raise EvidenceVerificationError(
+                "duplicate-vote evidence time does not match block time")
+        val_set = state_store.load_validators(ev.height())
+        verify_duplicate_vote(ev, state.chain_id, val_set)
+    elif isinstance(ev, LightClientAttackEvidence):
+        verify_light_client_attack(ev, state, state_store, block_store,
+                                   device=device)
+    else:
+        raise EvidenceVerificationError(
+            f"unknown evidence type {type(ev)}")
 
 
 def verify_duplicate_vote(ev: DuplicateVoteEvidence, chain_id: str,
@@ -65,3 +100,65 @@ def verify_duplicate_vote(ev: DuplicateVoteEvidence, chain_id: str,
         if not safe_verify(pub_key, vb.sign_bytes(chain_id),
                            vb.signature):
             raise EvidenceVerificationError("invalid signature on vote B")
+
+
+def verify_light_client_attack(ev: LightClientAttackEvidence, state,
+                               state_store, block_store=None,
+                               device="cuda") -> None:
+    """verify.go VerifyLightClientAttack.
+
+    The conflicting block's commit must carry 1/3+ of the common-height
+    validators' signatures (trusting batch path, on `device`), its
+    header must actually DIFFER from our stored header at that height,
+    and every accused byzantine validator must have signed the
+    conflicting commit: otherwise fabricated evidence could frame honest
+    validators."""
+    from ..types.block import BLOCK_ID_FLAG_ABSENT
+    from ..types.validation import Fraction, verify_commit_light_trusting
+
+    common_vals = state_store.load_validators(ev.common_height)
+    cb = ev.conflicting_block
+    if cb is None or getattr(cb, "signed_header", None) is None:
+        raise EvidenceVerificationError(
+            "light-client attack evidence missing conflicting block")
+    sh = cb.signed_header
+    with sigcache.consumer("evidence"):
+        verify_commit_light_trusting(
+            state.chain_id, common_vals, sh.commit, Fraction(1, 3),
+            device=device)
+    if ev.total_voting_power != common_vals.total_voting_power():
+        raise EvidenceVerificationError(
+            "evidence total power does not match common validator set")
+
+    # the conflicting header must conflict with OUR chain
+    if block_store is not None:
+        trusted = block_store.load_block_meta(sh.header.height)
+        if trusted is not None and \
+                trusted.block_id.hash == sh.header.hash():
+            raise EvidenceVerificationError(
+                "conflicting block matches the canonical chain — "
+                "no divergence to report")
+
+    # accused validators must exist at the common height AND have
+    # signed the conflicting commit (verify.go:103-120)
+    signers = {
+        s.validator_address
+        for s in sh.commit.signatures
+        if s.block_id_flag != BLOCK_ID_FLAG_ABSENT}
+    for val in ev.byzantine_validators:
+        _, member = common_vals.get_by_address(val.address)
+        if member is None:
+            raise EvidenceVerificationError(
+                f"accused validator {val.address.hex()} not in the "
+                f"common-height validator set")
+        if val.address not in signers:
+            raise EvidenceVerificationError(
+                f"accused validator {val.address.hex()} did not sign "
+                f"the conflicting commit")
+
+
+def _load_header(block_store, height: int):
+    if block_store is None:
+        return None
+    meta = block_store.load_block_meta(height)
+    return meta.header if meta is not None else None

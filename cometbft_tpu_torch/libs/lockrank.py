@@ -34,13 +34,23 @@ from concurrent.futures import Future
 
 # lower rank = acquired first; the JAX package's ranks for the same names
 LOCK_RANKS: dict[str, int] = {
-    # per-request ABCI callback guard: fires callbacks while held
+    # consensus core: the state mutex is the outermost product lock;
+    # nearly every subsystem below is reachable while it is held
+    "consensus.state": 20,
+    "consensus.peerstate": 30,
+    "consensus.ticker": 40,
+    "evidence.pool": 50,
+    # per-request ABCI callback guard: fires mempool callbacks while held,
+    # so it sits outside the mempool mutex
     "abci.reqres": 55,
+    "mempool.clist": 60,
+    "mempool.cache": 70,
     "blocksync.pool": 80,
     # storage plane (held while touching kv and the encode-once cache)
     "store.blockstore": 140,
     "state.store": 150,
     "store.kv": 160,
+    "pubsub": 170,
     # abci / app
     "abci.client": 290,
     "apps.kvstore": 330,
@@ -53,6 +63,8 @@ LOCK_RANKS: dict[str, int] = {
     "votestream.default": 380,
     "votestream.cv": 390,
     "dispatch.cv": 400,
+    # the WAL's rotating file group: taken alone, around a file write
+    "autofile": 410,
     "devhealth.registry": 420,
     "ed25519.atable": 430,
     "secp256k1.qtable": 440,
@@ -75,6 +87,8 @@ LOCK_RANKS: dict[str, int] = {
 }
 
 MULTI_OK = frozenset({
+    "consensus.state", "consensus.peerstate", "consensus.ticker",
+    "evidence.pool", "mempool.clist", "mempool.cache", "pubsub", "autofile",
     "blocksync.pool", "store.blockstore", "state.store", "store.kv",
     "abci.client", "apps.kvstore", "abci.reqres", "part_set.block_cache",
     "votestream.cv", "dispatch.cv", "devhealth.registry", "sigcache.stripe",

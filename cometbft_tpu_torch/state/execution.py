@@ -5,7 +5,9 @@ state/execution.go).
 `BlockExecutor(device=)` (default "cuda") is the device of its block
 validation (the LastCommit's verify_commit, K1-K4 on the card) and of
 its validator-set hashes; without a card it raises unless given
-device="cpu".
+device="cpu".  Consensus hands it the node's CListMempool and
+EvidencePool; without them (a block-syncing node, a chain built in
+tests) it takes _NopMempoolStub and NopEvidencePool.
 
 apply_block's ordering is the crash-safety contract (execution.go:236):
 FinalizeBlock -> SaveFinalizeBlockResponse -> update_state -> app Commit
@@ -123,14 +125,19 @@ class BlockExecutor:
     """state/execution.go:26-52."""
 
     def __init__(self, state_store, app_conn_consensus, mempool=None,
-                 evidence_pool=None, event_bus=None, device="cuda"):
+                 evidence_pool=None, block_store=None, event_bus=None,
+                 device="cuda"):
         self.device = devmod.resolve(device)
         self.store = state_store
         self.proxy_app = app_conn_consensus
         self.mempool = mempool if mempool is not None else _NopMempoolStub()
         self.evpool = evidence_pool or NopEvidencePool()
+        self.block_store = block_store
         self.event_bus = event_bus or ev.NopEventBus()
         self._last_validated_hash: bytes | None = None
+
+    def set_event_bus(self, event_bus) -> None:
+        self.event_bus = event_bus
 
     # -- proposal path -----------------------------------------------------
     def create_proposal_block(self, height: int, state: State,
@@ -175,6 +182,19 @@ class BlockExecutor:
         return make_block(state, height, new_txs, commit, evidence,
                           proposer_addr, timestamp=block.header.time,
                           device=self.device)
+
+    def process_proposal(self, block: Block, state: State) -> bool:
+        resp = self.proxy_app.process_proposal(at.ProcessProposalRequest(
+            hash=block.hash(),
+            height=block.header.height,
+            time=block.header.time,
+            txs=list(block.data.txs),
+            proposed_last_commit=self._build_last_commit_info(block, state),
+            misbehavior=_misbehavior(block.evidence),
+            proposer_address=block.header.proposer_address,
+            next_validators_hash=block.header.next_validators_hash,
+        ))
+        return resp.status == at.PROCESS_PROPOSAL_ACCEPT
 
     # -- validation --------------------------------------------------------
     def validate_block(self, state: State, block: Block) -> None:
@@ -265,6 +285,34 @@ class BlockExecutor:
             return res.retain_height
         finally:
             self.mempool.unlock()
+
+    # -- vote extensions ---------------------------------------------------
+    def extend_vote(self, vote, block: Block, state: State) -> bytes:
+        if block.hash() != vote.block_id.hash:
+            raise ValueError("vote's hash does not match the block")
+        if vote.height != block.header.height:
+            raise ValueError("vote and block heights do not match")
+        resp = self.proxy_app.extend_vote(at.ExtendVoteRequest(
+            hash=vote.block_id.hash,
+            height=vote.height,
+            time=block.header.time,
+            txs=list(block.data.txs),
+            proposed_last_commit=self._build_last_commit_info(block, state),
+            misbehavior=_misbehavior(block.evidence),
+            next_validators_hash=block.header.next_validators_hash,
+            proposer_address=block.header.proposer_address,
+        ))
+        return resp.vote_extension
+
+    def verify_vote_extension(self, vote) -> bool:
+        resp = self.proxy_app.verify_vote_extension(
+            at.VerifyVoteExtensionRequest(
+                hash=vote.block_id.hash,
+                validator_address=vote.validator_address,
+                height=vote.height,
+                vote_extension=vote.extension,
+            ))
+        return resp.status == at.VERIFY_VOTE_EXT_ACCEPT
 
     # -- helpers -----------------------------------------------------------
     def _load_validators(self, height: int, state: State) -> ValidatorSet:

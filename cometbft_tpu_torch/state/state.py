@@ -8,7 +8,7 @@ as of H+1; app hash from block H's FinalizeBlock.
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 
 from ..abci import types as at
 from ..crypto import merkle
@@ -73,6 +73,19 @@ class State:
 
     last_results_hash: bytes = b""
     app_hash: bytes = b""
+
+    def is_empty(self) -> bool:
+        return self.validators is None
+
+    def copy(self) -> "State":
+        return replace(
+            self,
+            next_validators=self.next_validators.copy()
+            if self.next_validators else None,
+            validators=self.validators.copy() if self.validators else None,
+            last_validators=self.last_validators.copy()
+            if self.last_validators else None,
+        )
 
     # -- wire (persisted by StateStore) ------------------------------------
 

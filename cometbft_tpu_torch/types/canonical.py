@@ -1,5 +1,5 @@
 """Canonical sign-bytes (the port's copy of
-`cometbft_tpu.types.canonical`, without the privval timestamp split).
+`cometbft_tpu.types.canonical`), and the timestamp split privval uses.
 
 These bytes are what validators sign — byte-for-byte compatibility with
 CometBFT is consensus-critical.  Layouts from CometBFT
@@ -115,3 +115,36 @@ def vote_extension_sign_bytes(chain_id: str, height: int, round_: int,
          .sfixed64_field(3, round_)
          .string_field(4, chain_id))
     return pw.marshal_delimited(w.bytes())
+
+
+# field numbers of the timestamp in the canonical vote / proposal
+VOTE_TIMESTAMP_FIELD = 5
+PROPOSAL_TIMESTAMP_FIELD = 6
+
+
+def split_timestamp(sign_bytes: bytes, ts_field: int
+                    ) -> tuple[bytes, Timestamp]:
+    """Strip the canonical timestamp field out of length-delimited
+    sign-bytes, returning (remainder, timestamp). Used by privval to
+    decide whether two sign requests differ only in timestamp
+    (privval/file.go:442-480)."""
+    payload, _ = pw.unmarshal_delimited(sign_bytes, 0)
+    r = pw.Reader(payload)
+    out = pw.Writer()
+    ts = Timestamp.zero()
+    while not r.at_end():
+        f, w = r.read_tag()
+        if f == ts_field and w == pw.BYTES:
+            ts = Timestamp.from_proto(r.read_bytes())
+            continue
+        if w == pw.VARINT:
+            out.tag(f, w).raw(pw.encode_uvarint(r.read_uvarint()))
+        elif w == pw.FIXED64:
+            out.tag(f, w).raw(r.buf[r.pos:r.pos + 8])
+            r.pos += 8
+        elif w == pw.BYTES:
+            b = r.read_bytes()
+            out.tag(f, w).raw(pw.encode_uvarint(len(b))).raw(b)
+        else:
+            r.skip(w)
+    return out.bytes(), ts

@@ -13,6 +13,9 @@ types/validation.verify_commit_light checks at the next height.
 
 from __future__ import annotations
 
+import collections
+import threading
+
 from ..libs.bits import BitArray
 from .block import (
     BLOCK_ID_FLAG_ABSENT, BLOCK_ID_FLAG_COMMIT, BLOCK_ID_FLAG_NIL,
@@ -23,6 +26,28 @@ from .vote import PRECOMMIT_TYPE, Vote
 
 # vote_set.go:17 MaxVotesCount — DoS bound, implies a validator limit
 MAX_VOTES_COUNT = 10000
+
+# how add_vote settled each signature, process-wide: "stream" (a resolved
+# pre-verification consumed) or "inline" (Vote.verify: the verdict
+# cache, then the host).  Read with verify_paths(); zero with
+# reset_verify_paths().
+_VERIFY_PATHS = collections.Counter()
+_VERIFY_PATHS_LOCK = threading.Lock()
+
+
+def _count_path(path: str) -> None:
+    with _VERIFY_PATHS_LOCK:
+        _VERIFY_PATHS[path] += 1
+
+
+def verify_paths() -> dict:
+    with _VERIFY_PATHS_LOCK:
+        return dict(_VERIFY_PATHS)
+
+
+def reset_verify_paths() -> None:
+    with _VERIFY_PATHS_LOCK:
+        _VERIFY_PATHS.clear()
 
 
 class VoteSetError(Exception):
@@ -152,6 +177,7 @@ class VoteSet:
                     val.pub_key.bytes(), vote.sign_bytes(self.chain_id),
                     vote.signature)
                 vote.preverified = None    # release buffers + future
+            _count_path("inline" if verdict is None else "stream")
             if verdict is False:
                 raise ValueError("invalid signature")
             if verdict is True:

@@ -9,9 +9,10 @@ joining at height 7), serial and pipelined, and must reach the JAX
 chain's app hash with every stored block byte-identical; a lying peer
 (one flipped signature byte in the LastCommit it serves) must be stopped
 and blamed for the tampered height.  Reactors are joined by an
-in-process loopback double (Net, below): every message crosses it as
-wire bytes, delivered to the other reactor's receive on that node's
-thread.  The port runs on device="cpu"; one sync sends its windows
+in-process loopback double (Net, below; test_torch_consensus.py joins
+its consensus reactors with it too): every message crosses it as wire
+bytes, delivered to the receiving node's reactor for the channel on
+that node's thread.  The port runs on device="cpu"; one sync sends its windows
 through the plain RLC program (K1-K4) by lowering
 DeferredSigBatch.DEVICE_THRESHOLD."""
 
@@ -90,21 +91,33 @@ def chain():
 # -- the loopback double ---------------------------------------------------------
 
 class _Peer:
-    """A node's handle on a remote node: try_send hands an Envelope to
-    the remote reactor's receive, on the remote node's thread."""
+    """A node's handle on a remote node: try_send (and send, which never
+    blocks here) hands an Envelope to the remote node's reactor for the
+    channel, on the remote node's thread; set / get keep per-peer data
+    (the consensus reactor's PeerState)."""
 
     def __init__(self, local, remote):
         self.id = remote.name
         self.local, self.remote = local, remote
         self.open = True
+        self.data = {}
 
     def try_send(self, ch, msg, tctx=None):
-        if not self.open:
+        back = self.remote.peers.get(self.local.name)
+        if not self.open or back is None:     # disconnected meanwhile
             return False
-        self.remote.inbox.put(Envelope(src=self.remote.peers[self.local.name],
-                                       message=bytes(msg), channel_id=ch,
-                                       tctx=tctx))
+        self.remote.inbox.put(Envelope(src=back, message=bytes(msg),
+                                       channel_id=ch, tctx=tctx))
         return True
+
+    def send(self, ch, msg, tctx=None):
+        return self.try_send(ch, msg, tctx)
+
+    def set(self, key, value):
+        self.data[key] = value
+
+    def get(self, key):
+        return self.data.get(key)
 
 
 class _Switch:
@@ -133,13 +146,20 @@ class _Switch:
 
 
 class _Node:
-    def __init__(self, net, name, reactor):
-        self.net, self.name, self.reactor = net, name, reactor
+    """A node's reactors (the first is `reactor`), each receiving the
+    channels it declares; a delivery thread."""
+
+    def __init__(self, net, name, *reactors):
+        self.net, self.name = net, name
+        self.reactor, self.reactors = reactors[0], reactors
+        self.by_channel = {d.id: r for r in reactors
+                           for d in r.get_channels()}
         self.peers = {}
         self.inbox = queue.Queue()
         self.held = None          # a list while deliveries are held
         self.switch = _Switch(self)
-        reactor.set_switch(self.switch)
+        for r in reactors:
+            r.set_switch(self.switch)
         self.thread = threading.Thread(target=self._deliver,
                                        name=f"loop-{name}", daemon=True)
         self.thread.start()
@@ -153,11 +173,14 @@ class _Node:
                 held, self.held = self.held, None
                 for e in sorted(held, key=_descending):
                     if e.src.open:
-                        self.reactor.receive(e)
+                        self._receive(e)
             elif self.held is not None and _descending(env) < 0:
                 self.held.append(env)
             elif env.src.open:
-                self.reactor.receive(env)
+                self._receive(env)
+
+    def _receive(self, env):
+        self.by_channel.get(env.channel_id, self.reactor).receive(env)
 
     def hold(self):
         """Queue the blocks sent to this node instead of delivering them
@@ -188,27 +211,39 @@ class Net:
     def __init__(self):
         self.nodes = {}
 
-    def add(self, name, reactor):
-        self.nodes[name] = _Node(self, name, reactor)
+    def add(self, name, *reactors):
+        self.nodes[name] = _Node(self, name, *reactors)
         return self.nodes[name]
 
     def connect(self, a, b):
         a, b = self.nodes[a], self.nodes[b]
         a.peers[b.name] = _Peer(a, b)
         b.peers[a.name] = _Peer(b, a)
-        a.reactor.add_peer(a.peers[b.name])
-        b.reactor.add_peer(b.peers[a.name])
+        for x, y in ((a, b), (b, a)):
+            for r in x.reactors:
+                r.init_peer(x.peers[y.name])
+        for x, y in ((a, b), (b, a)):
+            for r in x.reactors:
+                r.add_peer(x.peers[y.name])
+
+    def connect_all(self):
+        names = list(self.nodes)
+        for i, a in enumerate(names):
+            for b in names[i + 1:]:
+                self.connect(a, b)
 
     def disconnect(self, a, b, reason):
         for x, y in ((a, b), (b, a)):
             p = x.peers.pop(y.name, None)
             if p is not None:
                 p.open = False
-                x.reactor.remove_peer(p, reason)
+                for r in x.reactors:
+                    r.remove_peer(p, reason)
 
     def close(self):
         for n in self.nodes.values():
-            n.reactor.stop()
+            for r in n.reactors:
+                r.stop()
             n.inbox.put(None)
         for n in self.nodes.values():
             n.thread.join(5)

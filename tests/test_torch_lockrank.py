@@ -25,7 +25,10 @@ NEW_RANKS = {"dispatch.default": 370, "dispatch.cv": 400,
              "latledger.ring": 495, "flightrec.ring": 500,
              "tracetl.ring": 510, "metrics.registry": 530,
              "metrics.series": 540, "trace.stage": 520,
-             "service.lifecycle": 550}
+             "service.lifecycle": 550, "consensus.state": 20,
+             "consensus.peerstate": 30, "consensus.ticker": 40,
+             "evidence.pool": 50, "mempool.clist": 60,
+             "mempool.cache": 70, "pubsub": 170, "autofile": 410}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -57,7 +60,7 @@ def test_ranks_are_the_jax_packages():
         assert jlr.LOCK_RANKS[name] == rank
         assert (name in plr.MULTI_OK) == (name in jlr.MULTI_OK)
     with pytest.raises(ValueError):
-        plr.RankedLock("consensus.state")     # not a lock of the port
+        plr.RankedLock("p2p.switch")          # not a lock of the port
 
 
 def _inversion(lr):
