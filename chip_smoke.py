@@ -2,8 +2,9 @@
 """Drive the PyTorch/CUDA port's commit-verification paths on one NVIDIA
 card (Ed25519 in each of its MSM engine configurations, the device-hash
 route, secp256k1 and mixed-key commits, the verify pipeline, the
-consensus vote stream, the light client, block sync and consensus among
-live validators), and hold each
+consensus vote stream, the light client, block sync, the light-client
+serving plane, consensus among live validators, and full nodes over the
+p2p stack), and hold each
 of its CUDA kernels against its plain torch version.  Every per-signature
 localization of an Ed25519 reject (ops/ed25519.verify_kernel) must launch
 exactly one K1 and one K14, on one device over the live signatures.
@@ -192,7 +193,20 @@ result):
              stopped, the sync finished by two honest peers); the window
              cut at the validator-set change; every step's app hash and
              stored blocks the source's;
- 14. consensus 11 in-process validators, each a full port node
+ 14. lightserve the light-client serving plane (lightserve/,
+             simnet/lightfleet.py) over phase 13's source chain, read
+             only: DeferredSigBatch's threshold at 1, a seeded fleet of
+             1,000 clients (16 workers) through fleet_ab, coalescing off
+             then on: every client served, identical digests, fewer
+             windows and signatures on; every window one RLC program and
+             each of the 5% of clients that verify their bytes on the
+             card one, exactly; a read-only store double forging height
+             100's commit under 200 clients to height 102: exactly the
+             clients whose path holds 100 fail, each window holding it
+             localized by one K1 + K14 and counted once; the default
+             knobs (cache on, 300 clients): windows on the card and on
+             the host;
+ 15. consensus 11 in-process validators, each a full port node
              (ConsensusState, ConsensusReactor, CListMempool,
              EvidencePool, FilePV, EventBus, a BlockExecutor over a
              kvstore app, a WAL) over the loopback double, at CometBFT's
@@ -205,7 +219,19 @@ result):
              vote not added; node 0's WAL ending every height; the same
              network at the default knobs (cache on, 256); an
              equivocating validator's evidence committed;
- 15. engines the same entry points under each MSM engine configuration
+ 16. p2p     the p2p stack (SecretConnection, MConnection, the
+             transport and the Switch) over TCP on 127.0.0.1: four
+             validators and a non-validator, each a full node with the
+             consensus, mempool, evidence and blocksync reactors, at
+             CometBFT's default timeouts, the cache off and the
+             thresholds 1: 200 transactions into one mempool, gossiped
+             and committed once each past height 8 with the same blocks
+             everywhere; the fifth node catching up by block sync over
+             TCP; an equivocating validator's evidence gossiped and
+             committed; every LastCommit check, block-sync window and
+             vote window one RLC program (K1 + K14 for a window of one
+             vote), exactly; bytes by channel, frames, handshake ms;
+ 17. engines the same entry points under each MSM engine configuration
              (the JAX package's flags, set on the port's modules):
              window_loop (K6), window_loop_blk2048 (K6 under
              COMETBFT_TPU_PALLAS_BLK=2048: 1, 8 and 16 rows per output
@@ -218,9 +244,9 @@ result):
              batch, each verdict the default engine's; each must launch
              exactly its configuration's kernels (and K1 + K14 for each
              localization);
- 16. kernels each kernel vs its plain version on the card, at the shapes
+ 18. kernels each kernel vs its plain version on the card, at the shapes
              phases 2-4 gave it, and K1-K4 and K14 also at the shapes
-             of phase 8's sr25519 packs and phase 14's programs and
+             of phase 8's sr25519 packs and phase 15's programs and
              localizations that those lack (the mixed
              commit's and the mixed batch's: N = 64 and 1,024, K14 at 50
              and 1,000 live lanes) (exact integer equality; K1 at the four
@@ -265,7 +291,7 @@ result):
              key; and its first 4,096 lanes), verdict for verdict and
              accumulator for accumulator (frozen, coordinate for
              coordinate), and against ed25519_ref;
- 17. timing  each kernel's median time over runs of 10 launches back to
+ 19. timing  each kernel's median time over runs of 10 launches back to
              back and each plain version's time for one call (CUDA
              events; the kernels phase's comparison warmed it), with
              the bound the card could reach for the same
@@ -281,23 +307,24 @@ The launch counters are reset before phase 2 and read after phase 4
 (the default engine: every one of K1-K4 and K14 must launch there, none
 of K5-K8), reset before and read after phase 5's path (its comparisons
 with the plain version excluded), and reset before and read after each
-configuration of phase 15, reset before and read after phase 6's path
+configuration of phase 17, reset before and read after phase 6's path
 (its host-hash comparisons excluded), reset before and read after
 phase 7's path (its host-wait and order checks excluded), reset before
 and read after phases 8 and 9 (their oracle checks excluded), and reset
 before and read after phase 10 (its serial references and oracles
 excluded), reset after phase 11's first pre-warm and read after its
-third step, reset before and read after each step of phases 12 and 13,
-and reset before and read after phase 14's first network (the default
-knobs' network is counted apart).  The signature-verdict cache is off
-in every phase but 9, phase 10's cache step, phases 11 and 13 and phase
-14's default knobs.
+third step, reset before and read after each step of phases 12, 13 and
+14, reset before and read after phase 15's first network (the default
+knobs' network is counted apart) and phase 16's network.  The
+signature-verdict cache is off in every phase but 9, phase 10's cache
+step, phases 11 and 13 and the default-knob steps of phases 14 and 15.
 Keys and messages come from a fixed seed; the RLC weights are drawn from
 `secrets`, as they are in use.
 """
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import os
@@ -391,7 +418,7 @@ MESH_SHARDS = (1, 2, 4)
 NVLINK_BYTES_PER_S = 450e9     # one direction, H100 SXM data sheet
 
 # the engine flags (ops/ed25519 USE_PALLAS_*, ops/cuda_msm WIN_GROUP, BLK) at
-# the JAX package's defaults, and each configuration of phase 14: its
+# the JAX package's defaults, and each configuration of phase 17: its
 # flags, the kernels it must launch (and no other), whether it also runs
 # the 8,192 batch
 DEFAULT_ENGINE = {"USE_PALLAS_MSM_MAJOR": True, "USE_PALLAS_MSM_LOOP": True,
@@ -554,8 +581,8 @@ def main() -> int:
     phases = [phase_build, phase_fixtures, phase_commit, phase_window,
               phase_batch, phase_mesh, phase_hash, phase_secp, phase_sr25519,
               phase_sigcache, phase_pipeline, phase_votes, phase_light,
-              phase_blocksync, phase_consensus, phase_engines,
-              phase_kernels, phase_timing]
+              phase_blocksync, phase_lightserve, phase_consensus, phase_p2p,
+              phase_engines, phase_kernels, phase_timing]
     ctx = mp.get_context("spawn")
     with ctx.Pool(os.cpu_count() or 1) as pool:
         state["pool"] = pool
@@ -912,6 +939,77 @@ def _check_persig(persig, label, width, calls=1, want=None):
           f"{persig.launched}, not {calls} launching {want} each")
     check(persig.widths == [width] * calls, f"{label}: localizations over "
           f"{persig.widths} lanes, not {width}")
+
+
+def _keep_pack(packs, pubkeys, parsed, packed, ok):
+    """Keep an RLC program's pack in `packs` once per (A, R) width, when
+    the program accepted it: the kernels phase holds K1-K4 against their
+    plain versions at each width a main path gave them."""
+    from cometbft_tpu_torch.crypto import batch as cb
+    from cometbft_tpu_torch.crypto import ed25519 as ed
+
+    n = len(pubkeys)
+    if ok and n >= 2:
+        p = packed if packed is not cb._NO_PACK else ed.pack_rlc(
+            pubkeys, [b""] * n, [b""] * n, parsed=parsed)
+        if p is not None:
+            packs.setdefault((int(p[0].shape[-1]), int(p[1].shape[-1])), p)
+
+
+@contextlib.contextmanager
+def _kept_packs(packs):
+    """crypto/batch._device_verify, keeping each accepted program's pack
+    in `packs` (_keep_pack)."""
+    from cometbft_tpu_torch.crypto import batch as cb
+
+    real = cb._device_verify
+
+    def kept(pubkeys, parsed, device, packed=cb._NO_PACK):
+        ok, verdicts = real(pubkeys, parsed, device, packed=packed)
+        _keep_pack(packs, pubkeys, parsed, packed, ok)
+        return ok, verdicts
+    cb._device_verify = kept
+    try:
+        yield packs
+    finally:
+        cb._device_verify = real
+
+
+@contextlib.contextmanager
+def _kept_windows(pipe):
+    """pipe.submit, keeping each window's (items, handle)."""
+    real, windows = pipe.submit, []
+
+    def submit(items, **kw):
+        items = list(items)
+        h = real(items, **kw)
+        windows.append((items, h))
+        return h
+    pipe.submit = submit
+    try:
+        yield windows
+    finally:
+        pipe.submit = real
+
+
+def _keep_localized(state, key, windows, widths, label):
+    """The items of each window in `windows` ((items, handle), resolved)
+    that K1 + K14 localized (one signature, or a rejected program), once
+    per live width in state[key], for the kernels phase; the widths the
+    localizations ran at (`widths`, from _persig) must be theirs."""
+    kept = state.setdefault(key, {})
+    mine = set()
+    for items, h in windows:
+        ok, verdicts = h.result(timeout=0)
+        if len(items) == 1 or not all(verdicts):
+            mine.add(len(items))
+            # a DeferredSigBatch window carries PubKey objects, the vote
+            # stream's carry key bytes
+            kept.setdefault(len(items), tuple(zip(*[
+                (pk if isinstance(pk, bytes) else pk.bytes(), m, sig)
+                for pk, m, sig in items])))
+    check(set(widths) == mine, f"{label}: localizations over "
+          f"{sorted(set(widths))} lanes, windows localized at {sorted(mine)}")
 
 
 def _with_sig(commit, idx, byte, bit):
@@ -4644,6 +4742,7 @@ def phase_blocksync(state, torch):
 
     fx = {"src": _bs_fixtures(state)}
     src = fx["src"]
+    state["bs_src"] = src          # the lightserve phase serves this chain
     out = {"validators": N_VALS, "heights": BS_TOP, "synced": BS_TOP - 1,
            "depth_cut": f"{BS_TOP} blocks x {N_VALS} validators of "
                         f"BASELINE's 100k x 10k",
@@ -4761,7 +4860,388 @@ def phase_blocksync(state, torch):
     return out
 
 
-# -- phase 14: consensus -----------------------------------------------------
+# -- phase 14: the light-client serving plane ----------------------------------
+
+LS_CLIENTS = 1000              # step 1: the fleet, coalescing off then on
+LS_WORKERS = 16
+LS_SAMPLE = 0.05               # step 1: clients verifying their bytes
+LS_BAD = 100                   # step 2: the height whose commit is forged
+LS_BAD_TARGET = 102            # step 2's target: no 9/16 pivot chain to the
+                               # tip passes 100; to 102, 76 of 200 do
+LS_BAD_SIG = 37                # ... at this signature, among the first 101
+LS_BAD_CLIENTS = 200
+LS_DEFAULT_CLIENTS = 300       # step 3: the default knobs
+
+
+class _ReadOnlyStore:
+    """A read-only double of a BlockStore: every read is the store's,
+    except the commit of `bad`, whose signature `sig` has bit 1 of its
+    byte 40 flipped (its s half); nothing can be written through it."""
+
+    def __init__(self, store, bad, sig):
+        self._store, self.bad, self.sig = store, bad, sig
+        self.forged = None
+
+    def __getattr__(self, name):
+        if name.startswith(("save", "prune", "delete")):
+            raise AttributeError(f"read-only store: {name}")
+        return getattr(self._store, name)
+
+    def _forge(self, commit):
+        if self.forged is None:
+            self.forged, _ = _with_sig(commit, self.sig, 40, 1)
+        return self.forged
+
+    def load_block_commit(self, h):
+        c = self._store.load_block_commit(h)
+        return self._forge(c) if h == self.bad and c is not None else c
+
+    def load_seen_commit(self, h):
+        c = self._store.load_seen_commit(h)
+        return self._forge(c) if h == self.bad and c is not None else c
+
+
+def _ls_lane(rows):
+    """The lightserve lane's latency-ledger cuts: rows by path, wall p50
+    / p99 (ms) of the device windows and the coalesced claimants, and
+    each segment's p50 over the device windows."""
+    dev = [r for r in rows if r["path"] == "device"]
+    segs = sorted({k for r in dev for k in r["segs"]})
+    paths = {}
+    for r in rows:
+        paths[r["path"]] = paths.get(r["path"], 0) + 1
+    co = [r["wall"] * 1e3 for r in rows if r["path"] == "coalesced"]
+    return {"rows_by_path": paths,
+            "window_wall_ms_p50": _pct([r["wall"] * 1e3 for r in dev], 50),
+            "window_wall_ms_p99": _pct([r["wall"] * 1e3 for r in dev], 99),
+            "coalesced_wall_ms_p50": _pct(co, 50),
+            "coalesced_wall_ms_p99": _pct(co, 99),
+            "segments_ms_p50": {k: _pct([r["segs"][k] * 1e3 for r in dev
+                                         if k in r["segs"]], 50)
+                                for k in segs}}
+
+
+def _ls_arm_figures(rec):
+    return {k: rec[k] for k in ("clients", "wall_s", "clients_per_sec",
+                                "p50_ms", "p99_ms", "verify_windows",
+                                "verify_sigs", "pipeline_windows",
+                                "verified_clients")}
+
+
+def phase_lightserve(state, torch):
+    """The light-client serving plane (lightserve/, simnet/lightfleet.py)
+    on the card, over the blocksync phase's source chain (193 heights x
+    150 validators, 151 from height 81), read through its stores and
+    never written: no second build or signing pass.  The verdict cache
+    is off but in step 3.
+    1. launch run: DeferredSigBatch.DEVICE_THRESHOLD at 1 (a one-height
+       window holds 101 signatures, under the default 128), a seeded
+       fleet of 1,000 clients (fleet_mix: 85% within 3 blocks of the
+       tip) over 16 workers through fleet_ab, coalescing off then on on
+       one VerifyPipeline: every client served, the digests identical,
+       the ON arm fewer windows and signatures; every window one RLC
+       program and the 5% of clients that verify their bytes
+       (verify_payload on the card) one each, K1-K4 exact and no K14;
+       per arm clients/s, serve p50 / p99, windows, signatures, and the
+       lightserve lane's latency-ledger cuts; ON / OFF;
+    2. forged commit: a read-only store double serves height 100's
+       commit with signature 37's s flipped; 200 clients to height 102
+       (no pivot chain to the tip passes 100) on one coalescing session:
+       exactly the clients whose path holds 100 fail with
+       ErrInvalidSignature naming it, the rest are served; each window
+       that held 100 is one RLC program and one K1 + K14 over its live
+       lanes and counts one failed_heights, with one
+       EV_LIGHTSERVE_REJECT each;
+    3. default knobs: the cache on and both thresholds at their
+       defaults, 300 clients coalesced on the default pipeline:
+       clients/s and the windows that ran on the card against those on
+       the host (the latency ledger's paths).
+    Each step on a line of its own (`lightserve_step`) with the card's
+    name and power limit."""
+    from cometbft_tpu_torch.crypto import dispatch as vd
+    from cometbft_tpu_torch.crypto import ed25519 as ed
+    from cometbft_tpu_torch.crypto import sigcache
+    from cometbft_tpu_torch.libs import flightrec, latledger
+    from cometbft_tpu_torch.lightserve import LightServeSession, skip_path
+    from cometbft_tpu_torch.simnet import lightfleet
+    from cometbft_tpu_torch.types import validation as val
+
+    import random
+
+    src = state["bs_src"]
+    cache = ed._A_TABLE_CACHE
+    packs = state.setdefault("lightserve_packs", {})
+    out = {"card": state["card"], "heights": src.bstore.height(),
+           "validators": [N_VALS, N_VALS + 1], "chain": "the blocksync "
+           "phase's source chain, read only"}
+    launches = {}
+    real_vc, real_fleet = val.verify_commit, lightfleet.run_fleet
+    threshold = val.DeferredSigBatch.DEVICE_THRESHOLD
+    sampled = []
+
+    def counted_verify_commit(*a, **k):
+        sampled.append(a[3])
+        return real_vc(*a, **k)
+
+    # -- 1. launch run ------------------------------------------------------
+    ledger = latledger.LatLedgerRecorder(capacity=50_000,
+                                         slo=latledger.SLOTracker(
+                                             on_burn=lambda *a: None))
+    arms = []
+
+    def fleet(session, n, seed, **kw):
+        """run_fleet, with the arm's launches, A-table hits, sampled
+        verify_commit calls and ledger rows taken around it."""
+        b0, h0, s0 = _counts(), cache.hits, ledger.recorded
+        v0 = len(sampled)
+        rec = real_fleet(session, n, seed, **kw)
+        arms.append({"launches": _launched(b0, _counts()),
+                     "hits": cache.hits - h0,
+                     "sampled": sorted(sampled[v0:]),
+                     "rows": (s0, ledger.recorded)})
+        return rec
+
+    val.DeferredSigBatch.DEVICE_THRESHOLD = 1
+    val.verify_commit, lightfleet.run_fleet = counted_verify_commit, fleet
+    latledger.set_recorder(ledger)
+    try:
+        with vd.VerifyPipeline(device=DEVICE) as pipe, \
+                _persig(torch) as persig, _kept_packs(packs):
+            _zero_counts()
+            t0 = time.perf_counter()
+            ab = lightfleet.fleet_ab(src.bstore, src.sstore, CHAIN_ID,
+                                     LS_CLIENTS, SEED, workers=LS_WORKERS,
+                                     device=DEVICE, sample_verify=LS_SAMPLE,
+                                     pipeline=pipe)
+            seconds = time.perf_counter() - t0
+            got = _counts()
+            _clean_pipe(pipe, "lightserve launch run")
+    finally:
+        val.DeferredSigBatch.DEVICE_THRESHOLD = threshold
+        val.verify_commit, lightfleet.run_fleet = real_vc, real_fleet
+        latledger.set_recorder(None)
+    launches = _merge(launches, got)
+    rows = ledger.rows()
+    off, on = ab["arms"]["off"], ab["arms"]["on"]
+    # the clients run_fleet samples (its seeded mask), and the heights of
+    # their paths: one client-side verify_commit each
+    tip = src.bstore.height()
+    trusts = lightfleet.fleet_mix(LS_CLIENTS, tip, SEED)
+    pick = random.Random(SEED + 2)
+    mask = [pick.random() < LS_SAMPLE for _ in range(LS_CLIENTS)]
+    want_sampled = sorted(h for t, m in zip(trusts, mask) if m
+                          for h in skip_path(t, tip))
+    figures = {}
+    for name, rec, arm in (("off", off, arms[0]), ("on", on, arms[1])):
+        check(rec["pipeline_windows"] == rec["verify_windows"],
+              f"launch run {name}: {rec['pipeline_windows']} pipeline "
+              f"windows for {rec['verify_windows']} session windows")
+        check(rec["verified_clients"] == sum(mask) > 0 and
+              arm["sampled"] == want_sampled,
+              f"launch run {name}: {rec['verified_clients']} clients "
+              f"verified {len(arm['sampled'])} heights, not {sum(mask)} "
+              f"clients {len(want_sampled)} heights")
+        _want_launches({k: v for k, v in arm["launches"].items() if v},
+                       _rlc_want(arm["hits"], rec["verify_windows"]
+                                 + len(arm["sampled"])),
+                       f"launch run {name}")
+        lo, hi = arm["rows"]
+        figures[name] = {**_ls_arm_figures(rec),
+                         "sampled_clients": sum(mask),
+                         "client_side_verify_commits": len(arm["sampled"]),
+                         "a_table_hits": arm["hits"],
+                         "launches": {k: v for k, v in
+                                      arm["launches"].items() if v},
+                         "lightserve_lane": _ls_lane(
+                             [r for r in rows if lo <= r["seq"] < hi
+                              and r["consumer"] == "lightserve"])}
+    _check_persig(persig, "lightserve launch run", 0, calls=0)
+    out["launch_run"] = {
+        "clients": LS_CLIENTS, "workers": LS_WORKERS, "seed": SEED,
+        "sample_verify": LS_SAMPLE, "device_threshold": 1,
+        "seconds": seconds, "digest": ab["digest"],
+        "digest_parity": ab["digest_parity"],
+        "on_over_off_clients_per_s": ab["coalesce_ratio"],
+        "windows_on_over_off": on["verify_windows"] / off["verify_windows"],
+        "sigs_on_over_off": on["verify_sigs"] / off["verify_sigs"],
+        "light_clients_served_per_sec": ab["light_clients_served_per_sec"],
+        "light_serve_p99_ms": ab["light_serve_p99_ms"], **figures}
+    emit({"lightserve_step": "launch_run", "card": state["card"],
+          **out["launch_run"]})
+
+    # -- 2. a forged commit --------------------------------------------------
+    sigcache.set_enabled(False)
+    sigcache.reset()
+    store = _ReadOnlyStore(src.bstore, LS_BAD, LS_BAD_SIG)
+    rec_fr = flightrec.FlightRecorder()
+    windows = []
+    val.DeferredSigBatch.DEVICE_THRESHOLD = 1
+    flightrec.set_recorder(rec_fr)
+    try:
+        with vd.VerifyPipeline(device=DEVICE) as pipe, \
+                _persig(torch) as persig, _kept_packs(packs), \
+                _kept_windows(pipe) as pipe_windows:
+            session = LightServeSession(store, src.sstore, CHAIN_ID,
+                                        coalesce=True, pipeline=pipe,
+                                        device=DEVICE)
+            verify_heights = session._verify_heights
+
+            def recorded(heights, lane=None):
+                b0, h0 = _counts(), cache.hits
+                res = verify_heights(heights, lane=lane)
+                windows.append({"heights": list(heights),
+                                "failed": sorted(h for h, e in res.items()
+                                                 if e is not None),
+                                "launches": _launched(b0, _counts()),
+                                "hits": cache.hits - h0})
+                return res
+            session._verify_heights = recorded
+            session.coalescer._verify = recorded
+            _zero_counts()
+            try:
+                t0 = time.perf_counter()
+                bad = real_fleet(session, LS_BAD_CLIENTS, SEED,
+                                 target=LS_BAD_TARGET, workers=LS_WORKERS)
+                seconds = time.perf_counter() - t0
+            finally:
+                session.close()
+            got = _counts()
+            _clean_pipe(pipe, "lightserve forged commit")
+    finally:
+        val.DeferredSigBatch.DEVICE_THRESHOLD = threshold
+        flightrec.set_recorder(None)
+    launches = _merge(launches, got)
+    _keep_localized(state, "lightserve_persig", pipe_windows, persig.widths,
+                    "forged commit")
+    trusts = lightfleet.fleet_mix(LS_BAD_CLIENTS, LS_BAD_TARGET, SEED)
+    want_bad = {i for i, t in enumerate(trusts)
+                if LS_BAD in skip_path(t, LS_BAD_TARGET)}
+    failed = {}
+    for f in bad["failures"]:
+        i = int(f.split()[1])
+        failed[i] = f.split(": ", 1)[1]
+    msg = f"ErrInvalidSignature: invalid signature in commit at height {LS_BAD}"
+    check(set(failed) == want_bad and all(m == msg for m in failed.values()),
+          f"forged commit: {len(failed)} clients failed, {len(want_bad)} "
+          f"hold height {LS_BAD}; messages {sorted(set(failed.values()))}")
+    check(bad["clients"] == LS_BAD_CLIENTS - len(want_bad) > 0,
+          f"forged commit: {bad['clients']} clients served")
+    held = [w for w in windows if LS_BAD in w["heights"]]
+    check(held and all(w["failed"] == [LS_BAD] for w in held) and
+          not any(w["failed"] for w in windows if w not in held),
+          f"forged commit: windows holding {LS_BAD}: "
+          f"{[(w['heights'][:4], w['failed']) for w in held]}")
+    for w in windows:
+        want = _rlc_want(w["hits"], 1)
+        if w in held:
+            want = _merge(want, PERSIG_LAUNCHES)
+        _want_launches(w["launches"], want,
+                       f"forged commit window {w['heights'][:4]}...")
+    rejects = [e for e in rec_fr.events()
+               if e["kind"] == flightrec.EV_LIGHTSERVE_REJECT]
+    check(session.failed_heights == len(held) == persig.calls and
+          [e["height"] for e in rejects] == [LS_BAD] * len(held),
+          f"forged commit: failed_heights {session.failed_heights}, "
+          f"{len(held)} windows held it, {persig.calls} localizations, "
+          f"{len(rejects)} EV_LIGHTSERVE_REJECT")
+    check(src.bstore.load_block_commit(LS_BAD).signatures[LS_BAD_SIG]
+          .signature != store.forged.signatures[LS_BAD_SIG].signature,
+          "forged commit: the source store was written")
+    out["forged_commit"] = {
+        "height": LS_BAD, "signature": LS_BAD_SIG, "target": LS_BAD_TARGET,
+        "clients": LS_BAD_CLIENTS, "failed_clients": len(failed),
+        "served_clients": bad["clients"], "seconds": seconds,
+        "windows": len(windows), "windows_holding_it": len(held),
+        "failed_heights": session.failed_heights,
+        "localization_widths": persig.widths,
+        "ev_lightserve_reject": len(rejects),
+        "launches": {k: v for k, v in got.items() if v}}
+    emit({"lightserve_step": "forged_commit", "card": state["card"],
+          **out["forged_commit"]})
+
+    # -- 3. the default knobs ------------------------------------------------
+    ledger = latledger.LatLedgerRecorder(capacity=50_000,
+                                         slo=latledger.SLOTracker(
+                                             on_burn=lambda *a: None))
+    sigcache.set_enabled(True)
+    sigcache.reset()
+    latledger.set_recorder(ledger)
+    small = []
+    try:
+        with vd.VerifyPipeline(device=DEVICE) as pipe, _kept_packs(packs):
+            stage = pipe._stage
+
+            def staged(win):
+                """A window under its device threshold goes to the host
+                loop by design: count it."""
+                if len(win.items) < max(1, win.threshold):
+                    small.append(len(win.items))
+                return stage(win)
+            pipe._stage = staged
+            session = LightServeSession(src.bstore, src.sstore, CHAIN_ID,
+                                        pipeline=pipe, device=DEVICE)
+            _zero_counts()
+            h0 = cache.hits
+            try:
+                t0 = time.perf_counter()
+                dflt = real_fleet(session, LS_DEFAULT_CLIENTS, SEED + 1,
+                                  workers=LS_WORKERS)
+                seconds = time.perf_counter() - t0
+            finally:
+                session.close()
+            got = _counts()
+            hits = cache.hits - h0
+            stats = sigcache.cache().stats()
+            counters = {k: getattr(pipe, k) for k in (
+                "submitted", "device_windows", "host_windows", "faults",
+                "staging_fallbacks", "drained_windows")}
+    finally:
+        latledger.set_recorder(None)
+        sigcache.reset()
+        sigcache.set_enabled(False)
+    launches = _merge(launches, got)
+    check(not dflt["failures"] and dflt["clients"] == LS_DEFAULT_CLIENTS,
+          f"default knobs: {dflt['clients']} served, failures "
+          f"{dflt['failures'][:3]}")
+    check(counters["faults"] == counters["staging_fallbacks"] ==
+          counters["drained_windows"] == 0 and
+          counters["host_windows"] == len(small),
+          f"default knobs: pipeline {counters}, {len(small)} windows under "
+          f"the threshold")
+    _want_launches({k: v for k, v in got.items() if v},
+                   _rlc_want(hits, counters["device_windows"]),
+                   "default knobs")
+    rows = [r for r in ledger.rows() if r["consumer"] == "lightserve"]
+    by_path = {}
+    for r in rows:
+        by_path[r["path"]] = by_path.get(r["path"], 0) + 1
+    out["default_knobs"] = {
+        "clients": LS_DEFAULT_CLIENTS,
+        "device_threshold": val.DeferredSigBatch.DEVICE_THRESHOLD,
+        "window_ms": session.coalescer.window_s * 1e3,
+        "max_batch": session.coalescer.max_batch,
+        "clients_per_sec": dflt["clients_per_sec"],
+        "p50_ms": dflt["p50_ms"], "p99_ms": dflt["p99_ms"],
+        "verify_windows": session.verify_windows,
+        "verify_sigs": session.verify_sigs,
+        "windows_by_path": by_path, "seconds": seconds,
+        "pipeline": counters, "a_table_hits": hits,
+        "host_share_of_windows": by_path.get("host", 0) / max(
+            1, sum(v for k, v in by_path.items() if k != "coalesced")),
+        "cache_hits": stats["hits"], "cache_misses": stats["misses"],
+        "launches": {k: v for k, v in got.items() if v}}
+    emit({"lightserve_step": "default_knobs", "card": state["card"],
+          **out["default_knobs"]})
+    state["lightserve_launches"] = launches
+    launched = {k for k, v in launches.items() if v}
+    check(launched == DEFAULT_KERNELS,
+          f"the lightserve path launched {sorted(launched)}")
+    out["launches"] = {k: v for k, v in launches.items() if v}
+    _zero_counts()
+    return out
+
+
+# -- phase 15: consensus -----------------------------------------------------
 
 # validators of equal power, a node each: 11, not 16.  One interpreter
 # carries every node (a state thread, a delivery thread and three gossip
@@ -4787,77 +5267,74 @@ def _cs_config():
     return cstate.ConsensusConfig()
 
 
-class _CsNet:
-    """CS_NODES port validators, each a full node on DEVICE: a kvstore
-    app behind a LocalClient, a CListMempool, state and block stores on
-    MemDB, an EvidencePool, an EventBus, a BlockExecutor, a FilePV, a
-    WAL (under wal_root, if given), a ConsensusState and a
-    ConsensusReactor on `verifier` (None: the process's
-    default_verifier); start() dials every node from every other over a
-    _LoopNet."""
+def _cs_genesis(privs):
+    """The genesis of CHAIN_ID with `privs`' keys as validators of equal
+    power."""
+    from cometbft_tpu_torch.types.genesis import (GenesisDoc,
+                                                  GenesisValidator)
+    from cometbft_tpu_torch.types.timestamp import Timestamp
 
-    def __init__(self, privs, verifier, wal_root=None):
-        import types
+    return GenesisDoc(
+        chain_id=CHAIN_ID, genesis_time=Timestamp(BS_T0, 0),
+        validators=[GenesisValidator(pub_key=p.pub_key(), power=10)
+                    for p in privs])
 
-        from cometbft_tpu_torch.abci import types as at
-        from cometbft_tpu_torch.abci.client import LocalClient
-        from cometbft_tpu_torch.apps.kvstore import KVStoreApplication
-        from cometbft_tpu_torch.consensus.reactor import ConsensusReactor
-        from cometbft_tpu_torch.consensus.state import ConsensusState
-        from cometbft_tpu_torch.consensus.wal import WAL
-        from cometbft_tpu_torch.evidence import EvidencePool
-        from cometbft_tpu_torch.mempool import CListMempool
-        from cometbft_tpu_torch.privval import FilePV
-        from cometbft_tpu_torch.state.execution import BlockExecutor
-        from cometbft_tpu_torch.state.state import make_genesis_state
-        from cometbft_tpu_torch.state.store import StateStore
-        from cometbft_tpu_torch.store.blockstore import BlockStore
-        from cometbft_tpu_torch.store.kv import MemDB
-        from cometbft_tpu_torch.types.events import EventBus
-        from cometbft_tpu_torch.types.genesis import (GenesisDoc,
-                                                      GenesisValidator)
-        from cometbft_tpu_torch.types.timestamp import Timestamp
 
-        genesis = GenesisDoc(
-            chain_id=CHAIN_ID, genesis_time=Timestamp(BS_T0, 0),
-            validators=[GenesisValidator(pub_key=p.pub_key(), power=10)
-                        for p in privs])
-        self.net, self.nodes, self.closed = _LoopNet(), [], False
-        for i, priv in enumerate(privs):
-            n = types.SimpleNamespace(name=f"v{i:02d}", priv=priv)
-            state = make_genesis_state(genesis)
-            n.app = KVStoreApplication()
-            n.client = LocalClient(n.app)
-            n.client.init_chain(at.InitChainRequest(chain_id=CHAIN_ID,
-                                                    initial_height=1))
-            n.mempool = CListMempool(n.client)
-            n.sstore = StateStore(MemDB())
-            n.sstore.bootstrap(state)
-            n.bstore = BlockStore(MemDB())
-            n.evpool = EvidencePool(MemDB(), n.sstore, n.bstore,
-                                    device=DEVICE)
-            n.bus = EventBus()
-            n.bus.start()
-            n.exe = BlockExecutor(n.sstore, n.client, n.mempool, n.evpool,
-                                  block_store=n.bstore, event_bus=n.bus,
-                                  device=DEVICE)
-            n.wal = None if wal_root is None else WAL(
-                os.path.join(wal_root, n.name, "wal"))
-            n.cs = ConsensusState(_cs_config(), state, n.exe, n.bstore,
-                                  wal=n.wal, priv_validator=FilePV(priv),
-                                  event_bus=n.bus, evidence_pool=n.evpool,
-                                  mempool=n.mempool, device=DEVICE)
-            n.reactor = ConsensusReactor(n.cs, device=DEVICE,
-                                         verifier=verifier)
-            self.nodes.append(n)
+def _cs_node(name, genesis, priv, verifier, wal_root=None):
+    """One full node on DEVICE from `genesis`: a kvstore app behind a
+    LocalClient, a CListMempool, state and block stores on MemDB, an
+    EvidencePool, an EventBus, a BlockExecutor, a FilePV on `priv` (None:
+    a node that does not sign), a WAL (under wal_root, if given), a
+    ConsensusState and a ConsensusReactor on `verifier` (None: the
+    process's default_verifier)."""
+    import types
 
-    def start(self):
-        for n in self.nodes:
-            self.net.add(n.name, n.reactor).reactor.start()
-        names = [n.name for n in self.nodes]
-        for i, a in enumerate(names):
-            for b in names[i + 1:]:
-                self.net.connect(a, b)
+    from cometbft_tpu_torch.abci import types as at
+    from cometbft_tpu_torch.abci.client import LocalClient
+    from cometbft_tpu_torch.apps.kvstore import KVStoreApplication
+    from cometbft_tpu_torch.consensus.reactor import ConsensusReactor
+    from cometbft_tpu_torch.consensus.state import ConsensusState
+    from cometbft_tpu_torch.consensus.wal import WAL
+    from cometbft_tpu_torch.evidence import EvidencePool
+    from cometbft_tpu_torch.mempool import CListMempool
+    from cometbft_tpu_torch.privval import FilePV
+    from cometbft_tpu_torch.state.execution import BlockExecutor
+    from cometbft_tpu_torch.state.state import make_genesis_state
+    from cometbft_tpu_torch.state.store import StateStore
+    from cometbft_tpu_torch.store.blockstore import BlockStore
+    from cometbft_tpu_torch.store.kv import MemDB
+    from cometbft_tpu_torch.types.events import EventBus
+
+    n = types.SimpleNamespace(name=name, priv=priv)
+    state = make_genesis_state(genesis)
+    n.app = KVStoreApplication()
+    n.client = LocalClient(n.app)
+    n.client.init_chain(at.InitChainRequest(chain_id=CHAIN_ID,
+                                            initial_height=1))
+    n.mempool = CListMempool(n.client)
+    n.sstore = StateStore(MemDB())
+    n.sstore.bootstrap(state)
+    n.bstore = BlockStore(MemDB())
+    n.evpool = EvidencePool(MemDB(), n.sstore, n.bstore, device=DEVICE)
+    n.bus = EventBus()
+    n.bus.start()
+    n.exe = BlockExecutor(n.sstore, n.client, n.mempool, n.evpool,
+                          block_store=n.bstore, event_bus=n.bus,
+                          device=DEVICE)
+    n.wal = None if wal_root is None else WAL(
+        os.path.join(wal_root, name, "wal"))
+    n.cs = ConsensusState(_cs_config(), state, n.exe, n.bstore, wal=n.wal,
+                          priv_validator=None if priv is None
+                          else FilePV(priv),
+                          event_bus=n.bus, evidence_pool=n.evpool,
+                          mempool=n.mempool, device=DEVICE)
+    n.reactor = ConsensusReactor(n.cs, device=DEVICE, verifier=verifier)
+    return n
+
+
+class _Nodes:
+    """What the consensus and p2p networks share: waiting on their
+    nodes, and reading their chains back."""
 
     def wait(self, cond, what, nodes=None, timeout=CS_TIMEOUT_S):
         """Poll cond; raise what stopped a node's state machine."""
@@ -4877,16 +5354,6 @@ class _CsNet:
         self.wait(lambda: min(n.cs.height for n in nodes) > height,
                   f"every node past height {height}", nodes)
 
-    def close(self):
-        if self.closed:
-            return
-        self.closed = True
-        self.net.close()
-        for n in self.nodes:
-            n.bus.stop()
-            if n.wal is not None:
-                n.wal.close()
-
     def same_blocks(self, label, nodes=None):
         """Every node's blocks up to the lowest store height are one
         chain; returns that height."""
@@ -4902,6 +5369,37 @@ class _CsNet:
         """The commit round of each height 1..top, from node 0."""
         return [self.nodes[0].bstore.load_seen_commit(h).round
                 for h in range(1, top + 1)]
+
+
+class _CsNet(_Nodes):
+    """CS_NODES port validators, each a full node (_cs_node) with its WAL
+    under wal_root, if given, and its ConsensusReactor on `verifier`;
+    start() dials every node from every other over a _LoopNet."""
+
+    def __init__(self, privs, verifier, wal_root=None):
+        genesis = _cs_genesis(privs)
+        self.net, self.closed = _LoopNet(), False
+        self.nodes = [_cs_node(f"v{i:02d}", genesis, priv, verifier,
+                               wal_root)
+                      for i, priv in enumerate(privs)]
+
+    def start(self):
+        for n in self.nodes:
+            self.net.add(n.name, n.reactor).reactor.start()
+        names = [n.name for n in self.nodes]
+        for i, a in enumerate(names):
+            for b in names[i + 1:]:
+                self.net.connect(a, b)
+
+    def close(self):
+        if self.closed:
+            return
+        self.closed = True
+        self.net.close()
+        for n in self.nodes:
+            n.bus.stop()
+            if n.wal is not None:
+                n.wal.close()
 
 
 def _cs_privs():
@@ -4982,16 +5480,8 @@ def _cs_launch_run(state, torch):
                        device=device)
 
     def kept_device_verify(pubkeys, parsed, device, packed=cb._NO_PACK):
-        """The program's pack, kept once per (A, R) width for the
-        kernels phase when the program accepted it."""
         ok, verdicts = real_dv(pubkeys, parsed, device, packed=packed)
-        n = len(pubkeys)
-        if ok and n >= 2:
-            p = packed if packed is not cb._NO_PACK else ed.pack_rlc(
-                pubkeys, [b""] * n, [b""] * n, parsed=parsed)
-            if p is not None:
-                packs.setdefault((int(p[0].shape[-1]), int(p[1].shape[-1])),
-                                 p)
+        _keep_pack(packs, pubkeys, parsed, packed, ok)
         return ok, verdicts
 
     ledger = latledger.LatLedgerRecorder(slo=latledger.SLOTracker(
@@ -5114,11 +5604,8 @@ def _cs_launch_run(state, torch):
                tamper_adds=tamper_adds, seconds=t_end - t_start,
                t_start=t_start, commit_at=commit_at, ledger=ledger,
                prof=prof, paths=vset_mod.verify_paths(), stream=sv)
-    persig_items = state.setdefault("consensus_persig", {})
-    for items, h in windows:
-        ok, verdicts = h.result(timeout=0)
-        if len(items) == 1 or not all(verdicts):
-            persig_items.setdefault(len(items), tuple(zip(*items)))
+    _keep_localized(state, "consensus_persig", windows, persig.widths,
+                    "launch run")
     return rec
 
 
@@ -5430,7 +5917,386 @@ def phase_consensus(state, torch):
     return out
 
 
-# -- phase 15: the engine configurations -------------------------------------
+# -- phase 16: the p2p stack ---------------------------------------------------
+
+P2P_VALIDATORS = 4
+P2P_TOP = 8                    # step 1 runs every validator past this height
+P2P_TXS = 200                  # kvstore transactions in node 3's mempool
+P2P_EVIDENCE_AFTER = 2         # step 3 runs this far past the evidence
+P2P_CHANNELS = bytes([0x20, 0x21, 0x22, 0x23, 0x30, 0x38, 0x40])
+
+
+class _P2PNet(_Nodes):
+    """P2P_VALIDATORS port validators and one non-validator joiner, each
+    a full node (_cs_node) with a Switch on 127.0.0.1:0
+    (MultiplexTransport: SecretConnection, MConnection) carrying its
+    consensus, mempool, evidence and blocksync reactors; the joiner
+    syncs by block sync before its consensus reactor takes over.  Each
+    switch counts its wire bytes by channel (P2PMetrics)."""
+
+    def __init__(self, privs, verifier):
+        from cometbft_tpu_torch.blocksync.reactor import BlocksyncReactor
+        from cometbft_tpu_torch.crypto import ed25519 as ed
+        from cometbft_tpu_torch.evidence.reactor import EvidenceReactor
+        from cometbft_tpu_torch.libs import metrics
+        from cometbft_tpu_torch.mempool.reactor import MempoolReactor
+        from cometbft_tpu_torch.p2p import NodeInfo, NodeKey, Switch
+        from cometbft_tpu_torch.p2p.transport import MultiplexTransport
+
+        genesis = _cs_genesis(privs)
+        self.closed = False
+        self.nodes = [_cs_node(f"v{i:02d}", genesis, priv, verifier)
+                      for i, priv in enumerate(list(privs) + [None])]
+        self.validators, self.joiner = self.nodes[:-1], self.nodes[-1]
+        for i, n in enumerate(self.nodes):
+            sync = n is self.joiner
+            n.key = NodeKey(ed.PrivKey.generate(_seed("p2p-node", i)))
+            info = NodeInfo(node_id=n.key.id, network=CHAIN_ID,
+                            channels=P2P_CHANNELS, moniker=n.name)
+            n.sw = Switch(MultiplexTransport(n.key, info),
+                          listen_addr="127.0.0.1:0")
+            n.sw.metrics = metrics.P2PMetrics(metrics.Registry())
+            n.reactor.wait_sync = sync
+            n.blocksync = BlocksyncReactor(
+                n.cs.state, n.exe, n.bstore, sync,
+                consensus_reactor=n.reactor, device=DEVICE)
+            n.mempool_reactor = MempoolReactor(n.mempool)
+            n.evidence = EvidenceReactor(n.evpool)
+            for name, r in (("CONSENSUS", n.reactor),
+                            ("MEMPOOL", n.mempool_reactor),
+                            ("EVIDENCE", n.evidence),
+                            ("BLOCKSYNC", n.blocksync)):
+                n.sw.add_reactor(name, r)
+
+    def start(self, nodes=None):
+        """Start each node's switch and dial every node started before
+        it (a full mesh among `nodes`, the validators by default)."""
+        nodes = self.validators if nodes is None else nodes
+        for n in nodes:
+            n.sw.start()
+        for n in nodes:
+            for m in self.nodes:
+                if m is not n and m.sw.is_running() and \
+                        not n.sw.peers.has(m.key.id) and \
+                        not m.sw.peers.has(n.key.id):
+                    n.sw.dial_peer(f"{m.key.id}@{m.sw.bound_addr}")
+        want = {n.key.id: {m.key.id for m in self.nodes
+                           if m is not n and m.sw.is_running()}
+                for n in self.nodes if n.sw.is_running()}
+        self.wait(lambda: all({p.id for p in n.sw.peers.list()} ==
+                              want[n.key.id] for n in self.nodes
+                              if n.sw.is_running()), "the full mesh",
+                  timeout=60)
+
+    def close(self):
+        if self.closed:
+            return
+        self.closed = True
+        for n in self.nodes:
+            n.sw.stop()
+        for n in self.nodes:
+            n.bus.stop()
+
+
+def _p2p_wire(nodes):
+    """Bytes sent by channel (P2PMetrics), sealed SecretConnection frames
+    sent and the flow-rate monitors' totals, summed over `nodes`."""
+    by_ch, frames, sent, recv = {}, 0, 0, 0
+    for n in nodes:
+        m = n.sw.metrics.message_send_bytes_total
+        for key, v in m._values.items():
+            by_ch[key[0]] = by_ch.get(key[0], 0) + v
+        for p in n.sw.peers.list():
+            frames += p.mconn._conn._send_nonce.counter
+            st = p.mconn.status()
+            sent += st["send"]["bytes"]
+            recv += st["recv"]["bytes"]
+    return {"bytes_sent_by_channel": by_ch, "frames_sent": frames,
+            "flowrate_bytes_sent": sent, "flowrate_bytes_received": recv}
+
+
+def phase_p2p(state, torch):
+    """The p2p stack (p2p/: SecretConnection, MConnection,
+    MultiplexTransport, Switch) carrying the port's reactors between
+    full nodes over TCP on 127.0.0.1, on the card: four validators and a
+    fifth, non-validator node, each a Switch with the consensus,
+    mempool, evidence and blocksync reactors over a kvstore app, at
+    CometBFT's default timeouts (_cs_config), the verdict cache off, the
+    vote stream's device threshold and both batch thresholds 1:
+    1. the validators dial a full mesh over SecretConnection; 200
+       transactions go into validator 3's mempool only; every validator
+       runs past height 8: the same block hashes everywhere, each
+       transaction committed once, gossiped by the mempool reactor;
+    2. the fifth node starts (past height 8), dials the four and catches
+       up by block sync over TCP: its windows on the card, its blocks
+       the validators' and its app hash theirs;
+    3. validator 0 double-signs its prevotes: its DuplicateVoteEvidence
+       reaches the others' pools (the evidence reactor gossips it), is
+       committed, and the chain goes 2 heights on.
+    The counts are set to 0 before the network starts and read after it
+    stopped: every LastCommit check, block-sync window and vote window
+    of two votes or more one RLC program (K1-K4), a vote window of one
+    one K1 + K14, exactly.  Reported: heights/s, per-height p50, bytes
+    and packets sent by channel, sealed frames, handshake ms, launches by
+    kernel."""
+    import threading
+
+    from cometbft_tpu_torch.crypto import batch as cb
+    from cometbft_tpu_torch.crypto import dispatch as vd
+    from cometbft_tpu_torch.crypto import ed25519 as ed
+    from cometbft_tpu_torch.crypto import votestream as vs_mod
+    from cometbft_tpu_torch.p2p.conn import connection as connmod
+    from cometbft_tpu_torch.p2p.conn import secret_connection as scmod
+    from cometbft_tpu_torch.types import validation as val
+    from cometbft_tpu_torch.types.evidence import DuplicateVoteEvidence
+
+    privs = [ed.PrivKey.generate(_seed("p2p", i))
+             for i in range(P2P_VALIDATORS)]
+    cache = ed._A_TABLE_CACHE
+    packs = state.setdefault("p2p_packs", {})
+    calls, bs_windows, handshakes = [], [], []
+    ev_received = []
+    real_dv, real_make = cb._device_verify, scmod.SecretConnection.make
+    verify, verify_async = val.DeferredSigBatch.verify, \
+        val.DeferredSigBatch.verify_async
+    thresholds = (cb.DEVICE_THRESHOLD, val.DeferredSigBatch.DEVICE_THRESHOLD)
+
+    inflight = [0]
+    lock = threading.Lock()
+
+    def counted_dv(pubkeys, parsed, device, packed=cb._NO_PACK):
+        with lock:
+            inflight[0] += 1
+        try:
+            ok, verdicts = real_dv(pubkeys, parsed, device, packed=packed)
+            calls.append((len(pubkeys), ok))
+            _keep_pack(packs, pubkeys, parsed, packed, ok)
+            return ok, verdicts
+        finally:
+            with lock:
+                inflight[0] -= 1
+
+    def quiet():
+        """Wait until no program is between its first and last launch
+        (a window still on a pipeline once every node has stopped)."""
+        deadline = time.monotonic() + 60
+        while inflight[0] and time.monotonic() < deadline:
+            time.sleep(0.01)
+        check(inflight[0] == 0, "p2p: a program still running")
+
+    packets = {}
+    real_next = connmod._Channel.next_packet
+
+    def counted_next(self):
+        """MConnection packets (<= 1,024 bytes of a message) by channel."""
+        out = real_next(self)
+        with lock:
+            key = "%#x" % self.desc.id
+            packets[key] = packets.get(key, 0) + 1
+        return out
+
+    def timed_make(sock, priv_key):
+        t0 = time.perf_counter()
+        conn = real_make(sock, priv_key)
+        handshakes.append((time.perf_counter() - t0) * 1e3)
+        return conn
+
+    def w_verify(self, device="cuda"):
+        bs_windows.append(self.count())
+        return verify(self, device=device)
+
+    def w_verify_async(self, pipeline, subsystem="pipeline", lane=None):
+        bs_windows.append(self.count())
+        return verify_async(self, pipeline, subsystem=subsystem, lane=lane)
+
+    byz = privs[0].pub_key().address()
+
+    def evidence_of(n):
+        for h in range(1, n.bstore.height() + 1):
+            for ev in n.bstore.load_block(h).evidence:
+                if isinstance(ev, DuplicateVoteEvidence) and \
+                        ev.vote_a.validator_address == byz:
+                    return h, ev
+        return None
+
+    out = {"validators": P2P_VALIDATORS, "nodes": P2P_VALIDATORS + 1,
+           "config": "CometBFT default timeouts", "card": state["card"]}
+    net = None
+    with vd.VerifyPipeline(device=DEVICE) as pipe:
+        sv = vs_mod.StreamingVerifier(device_threshold=1, pipeline=pipe,
+                                      device=DEVICE)
+        sv.start()
+        try:
+            check(sv.warmed.wait(timeout=900) and sv.warm_error is None,
+                  f"p2p: the stream's pre-warm: {sv.warm_error!r}")
+            cb.DEVICE_THRESHOLD = 1
+            val.DeferredSigBatch.DEVICE_THRESHOLD = 1
+            cb._device_verify = counted_dv
+            connmod._Channel.next_packet = counted_next
+            scmod.SecretConnection.make = staticmethod(timed_make)
+            val.DeferredSigBatch.verify = w_verify
+            val.DeferredSigBatch.verify_async = w_verify_async
+            net = _P2PNet(privs, sv)
+            vals = net.validators
+            for n in net.nodes:
+                recv = n.evidence.receive
+
+                def spy(env, n=n, recv=recv):
+                    ev_received.append(n.name)
+                    return recv(env)
+                n.evidence.receive = spy
+            got_txs = {n.name: 0 for n in vals}
+            for n in vals:
+                recv = n.mempool_reactor.receive
+
+                def mspy(env, n=n, recv=recv):
+                    from cometbft_tpu_torch.mempool.reactor import decode_txs
+                    got_txs[n.name] += len(decode_txs(env.message))
+                    return recv(env)
+                n.mempool_reactor.receive = mspy
+            txs = [b"p2p%04d=v%d" % (i, i % 13) for i in range(P2P_TXS)]
+            for tx in txs:
+                vals[3].mempool.check_tx(tx)
+            commit_at = _cs_timed_commits(vals[0])
+            with _persig(torch) as persig, \
+                    _kept_windows(pipe) as pipe_windows:
+                _zero_counts()
+                h0 = cache.hits
+                t0 = time.perf_counter()
+                net.start()
+                mesh_s = time.perf_counter() - t0
+                net.run_past(P2P_TOP, vals)
+                t1 = time.perf_counter()
+                # 2. the joiner
+                joiner = net.joiner
+                net.start([joiner])
+                check(joiner.blocksync.wait_synced(CS_TIMEOUT_S),
+                      "p2p: the joiner did not catch up")
+                sync_s = time.perf_counter() - t1
+                synced_to = joiner.bstore.height()
+                windows_synced = list(bs_windows)
+                # 3. equivocation
+                t2 = time.perf_counter()
+                _cs_byzantine(vals[0])
+                found = {}
+
+                def landed():
+                    for n in vals[1:]:
+                        if n.name not in found:
+                            e = evidence_of(n)
+                            if e is None:
+                                return False
+                            found[n.name] = e
+                    return True
+                net.wait(landed, "committed duplicate-vote evidence",
+                         vals[1:])
+                at = max(h for h, _ in found.values())
+                ev_s = time.perf_counter() - t2
+                net.run_past(at + P2P_EVIDENCE_AFTER, vals[1:])
+                wire = _p2p_wire(net.nodes)
+                t_end = time.perf_counter()
+                net.close()
+                sv.stop()
+                for _, h in pipe_windows:
+                    h.result(timeout=600)
+                quiet()
+                got = _counts()
+                hits = cache.hits - h0
+        finally:
+            cb._device_verify = real_dv
+            connmod._Channel.next_packet = real_next
+            scmod.SecretConnection.make = staticmethod(real_make)
+            val.DeferredSigBatch.verify = verify
+            val.DeferredSigBatch.verify_async = verify_async
+            cb.DEVICE_THRESHOLD, val.DeferredSigBatch.DEVICE_THRESHOLD = \
+                thresholds
+            if net is not None:
+                net.close()
+            sv.stop()
+    # 1. the same chain, every transaction committed once, gossiped
+    top = net.same_blocks("p2p", vals)
+    check(top >= P2P_TOP, f"p2p: the validators hold {top} blocks")
+    chain_txs = [tx for h in range(1, top + 1)
+                 for tx in vals[0].bstore.load_block(h).data.txs]
+    check(sorted(chain_txs) == sorted(txs),
+          f"p2p: {len(chain_txs)} txs committed, {len(set(chain_txs))} "
+          f"distinct, of {P2P_TXS}")
+    check(all(got_txs[n.name] > 0 for n in vals[:3]),
+          f"p2p: txs received by the mempool reactors {got_txs}")
+    want_hash = P2P_TXS.to_bytes(8, "big")
+    check(all(n.app.app_hash == want_hash for n in vals),
+          f"p2p: app hashes {sorted({n.app.app_hash.hex() for n in vals})}")
+    # 2. the joiner's blocks, windows and app hash
+    jst = joiner.sstore.load()
+    jh = jst.last_block_height
+    ref = max(vals[1:], key=lambda n: n.bstore.height())
+    want_jh = ref.bstore.load_block(jh + 1).header.app_hash \
+        if ref.bstore.height() > jh else ref.cs.state.app_hash \
+        if ref.cs.state.last_block_height == jh else None
+    # a syncing node stops one block below its peers' height: the block
+    # above carries the commit its last block needs
+    check(windows_synced and synced_to >= P2P_TOP - 1 and
+          joiner.blocksync.error is None,
+          f"p2p: the joiner synced to {synced_to} in {len(windows_synced)} "
+          f"windows, error {joiner.blocksync.error!r}")
+    check(all(joiner.bstore.load_block(h).hash() ==
+              ref.bstore.load_block(h).hash()
+              for h in range(1, min(joiner.bstore.height(), top) + 1)),
+          "p2p: the joiner's blocks differ from the validators'")
+    check(jst.app_hash == want_jh,
+          f"p2p: the joiner's app hash {jst.app_hash.hex()} at {jh}, the "
+          f"validators' {want_jh.hex() if want_jh else None}")
+    # 3. the evidence
+    h, ev = found[vals[1].name]
+    check(all(e[0] == h and e[1].hash() == ev.hash() for e in found.values())
+          and all(n.evpool._is_committed(ev) for n in vals[1:]),
+          f"p2p: evidence committed at {sorted({e[0] for e in found.values()})}")
+    check(ev_received, "p2p: no evidence crossed the evidence reactor")
+    check(all(n.evidence.error is None for n in net.nodes),
+          f"p2p: evidence reactor errors "
+          f"{[repr(n.evidence.error) for n in net.nodes]}")
+    # launches: every program the run made, exactly
+    n_rlc = sum(1 for n, _ in calls if n >= 2)
+    n_persig = sum(1 for n, ok in calls if n == 1 or not ok)
+    check(all(ok for n, ok in calls if n >= 2),
+          f"p2p: a program rejected: {[c for c in calls if not c[1]]}")
+    want = _merge(_rlc_want(hits, n_rlc), *[PERSIG_LAUNCHES] * n_persig)
+    _want_launches({k: v for k, v in got.items() if v}, want, "p2p")
+    check(persig.calls == n_persig, f"p2p: {persig.calls} localizations, "
+          f"not {n_persig}")
+    _keep_localized(state, "p2p_persig", pipe_windows, persig.widths, "p2p")
+    check(pipe.faults == pipe.host_windows == pipe.staging_fallbacks == 0 and
+          sv.device_fallbacks == sv.build_errors == 0 and
+          sv.path_flushes["host"] == 0,
+          f"p2p: pipeline faults {pipe.faults}, host windows "
+          f"{pipe.host_windows}, stream flushes {dict(sv.path_flushes)}")
+    state["p2p_launches"] = got
+    launched = {k for k, v in got.items() if v}
+    check(launched == DEFAULT_KERNELS,
+          f"the p2p path launched {sorted(launched)}")
+    heights = _cs_heights(net, P2P_TOP, t0, commit_at)
+    out.update({
+        "mesh_seconds": mesh_s, **heights,
+        "handshake_ms": {"count": len(handshakes),
+                         "p50": _pct(handshakes, 50),
+                         "max": max(handshakes)},
+        "txs": P2P_TXS, "txs_received_by_mempool_reactor": got_txs,
+        "joiner": {"synced_to": synced_to, "seconds": sync_s,
+                   "blocksync_windows": len(windows_synced),
+                   "window_signatures": windows_synced},
+        "evidence": {"height": h, "vote_height": ev.vote_a.height,
+                     "seconds_to_evidence": ev_s,
+                     "evidence_messages_received": len(ev_received)},
+        "programs": {"rlc": n_rlc, "localizations": n_persig,
+                     "blocksync_windows": len(bs_windows)},
+        "a_table_hits": hits, "seconds": t_end - t0, **wire,
+        "packets_sent_by_channel": dict(packets),
+        "launches": {k: v for k, v in got.items() if v}})
+    _zero_counts()
+    return out
+
+
+# -- phase 17: the engine configurations -------------------------------------
 
 def phase_engines(state, torch):
     """Each configuration drives the commit, the window and (where
@@ -5480,7 +6346,7 @@ def phase_engines(state, torch):
     return {"configurations": rows}
 
 
-# -- phase 16: kernel vs plain -----------------------------------------------
+# -- phase 18: kernel vs plain -----------------------------------------------
 
 def _hostile_words(state, torch):
     """K1 input at W = 8192: the phase-4 public keys (two of them
@@ -5528,6 +6394,9 @@ def _exact(a, b):
 # K4's partial sets beyond the main path's, (na, nr): 1 + 1, the window's
 # and the batch's partial counts, 129, K5's partials of the batch
 # (320 + 256) and K6's (2560 + 2048); the torsion case at two of them
+# the phases whose RLC packs (state[f"{path}_packs"]) and localized items
+# (state[f"{path}_persig"]) the kernels phase holds K1-K4 and K14 to
+PATH_PACKS = ("consensus", "lightserve", "p2p")
 FOLD_SETS = ((1, 1), (4, 10), (10, 8), (65, 64), (320, 256), (2560, 2048))
 FOLD_TORSION = ((10, 8), (320, 256))
 TORSION8 = "26e8958fc2b227b045c3f489f2ef98f0d5dfac05d3c63339b13802886d53fc05"
@@ -5717,15 +6586,19 @@ def phase_kernels(state, torch):
                                  mags, negs))
         sr_folds.append((label, all(_sr_oracle(state, tuple(zip(*items)))),
                          *parts))
-    # the consensus phase's RLC programs (LastCommit checks and vote
-    # windows) at the (A, R) widths the packs above do not have: K1-K3
-    # on both sides, K4 on their partials (each pack's program accepted)
+    # the RLC programs of the consensus, lightserve and p2p phases
+    # (LastCommit checks, vote, serving and block-sync windows, sampled
+    # client-side commits) at the (A, R) widths the packs above do not
+    # have: K1-K3 on both sides, K4 on their partials (each pack's
+    # program accepted)
     cs_folds = []
-    for (wa, wr), packed in sorted(state.get("consensus_packs", {}).items()):
+    for path, (wa, wr), packed in sorted(
+            (path, key, p) for path in PATH_PACKS
+            for key, p in state.get(f"{path}_packs", {}).items()):
         if (wa, wr) in held:
             continue
         held.add((wa, wr))
-        label = f"consensus A {wa}, R {wr}"
+        label = f"{path} A {wa}, R {wr}"
         t = convert.packed_from_numpy(packed, DEVICE)
         parts = []
         for side, (w, mags, negs) in (("A", (t[0], t[2], t[3])),
@@ -6073,8 +6946,10 @@ def _persig_cases(state, torch):
     16,384, 16,384) and at their live widths (101, 4,848, 8,192: the main
     path's since K14 launches over the live lanes), the edge lanes (two
     buckets of 16)
-    and the wide corrupted pack (and its first 4,096 lanes); every
-    verdict also against ed25519_ref (the edge lanes: its group law)."""
+    and the wide corrupted pack (and its first 4,096 lanes), and each
+    live width the consensus, lightserve and p2p phases localized at;
+    every verdict also against ed25519_ref (the edge lanes: its group
+    law)."""
     import numpy as np
 
     from cometbft_tpu_torch import convert
@@ -6129,13 +7004,15 @@ def _persig_cases(state, torch):
             runs.append((f"sr25519, live {width}", tuple(arrays), [
                 bool(v) and w for v, w in
                 zip(valid, _sr_oracle(state, tuple(zip(*items))))]))
-    for width, items in sorted(state.get("consensus_persig", {}).items()):
-        # the consensus phase's localizations (windows of one vote, the
-        # tampered vote's window) at the live widths the runs lack
-        if width not in held:
-            held.add(width)
-            runs.append((f"consensus, live {width}",
-                         *packed(items, live=True)))
+    for path in PATH_PACKS:
+        # the localizations of the consensus, lightserve and p2p phases
+        # (windows of one vote, the tampered vote's window, each window
+        # that held the forged commit) at the live widths the runs lack
+        for width, items in sorted(state.get(f"{path}_persig", {}).items()):
+            if width not in held:
+                held.add(width)
+                runs.append((f"{path}, live {width}",
+                             *packed(items, live=True)))
     out = []
     for label, arrays, want in runs:
         aw, rw, st, ht = convert.batch_from_numpy(*arrays, DEVICE)
@@ -6520,7 +7397,7 @@ def _raw_secp(torch, name, args, step=None):
     return launch
 
 
-# -- phase 17: timing -------------------------------------------------------
+# -- phase 19: timing -------------------------------------------------------
 
 def _time(torch, fn, args, reps, inner=1, warm=True):
     """Median over reps of the CUDA-event time of `inner` calls made back
@@ -6813,6 +7690,8 @@ def phase_timing(state, torch):
                    "light": state["light_launches"].get(name, 0),
                    "blocksync": state["blocksync_launches"].get(name, 0),
                    "consensus": state["consensus_launches"].get(name, 0),
+                   "lightserve": state["lightserve_launches"].get(name, 0),
+                   "p2p": state["p2p_launches"].get(name, 0),
                    **{cfg: c[name]
                       for cfg, c in state["engine_launches"].items()}}
         if name in DEFAULT_KERNELS:
@@ -6826,7 +7705,7 @@ def phase_timing(state, torch):
                            if k not in ("main", "mesh", "hash", "secp",
                                         "sr25519", "sigcache", "pipeline",
                                         "votes", "light", "blocksync",
-                                        "consensus"))
+                                        "consensus", "lightserve", "p2p"))
         source, replaces = KERNELS[name]
         rows.append({"name": name, "route": "cuda", "source": CSRC + source,
                      "replaces": replaces, "launches": launches,

@@ -8,8 +8,10 @@ secp256k1 and mixed-key commits run on hand-written kernels too (the
 per-key tables, the MSM verify and the ladder).  The consumers on top
 of it: the verify pipeline, the consensus vote stream, the light
 client (light/) and block sync (blocksync/, with the block and state
-stores, part sets and block execution on the kvstore app), with the wire
-types they read.  The package imports torch, numpy and the standard
-library only; its entry points take `device=` (default "cuda") and run
-every kernel's plain torch version when the caller passes device="cpu".
+stores, part sets and block execution on the kvstore app), consensus,
+the light-client serving plane (lightserve/) and the p2p stack (p2p/,
+with the mempool and evidence reactors), with the wire types they read.
+The package imports torch, numpy and the standard library only; its
+entry points take `device=` (default "cuda") and run every kernel's
+plain torch version when the caller passes device="cpu".
 """

@@ -34,6 +34,16 @@ from concurrent.futures import Future
 
 # lower rank = acquired first; the JAX package's ranks for the same names
 LOCK_RANKS: dict[str, int] = {
+    # the light-client fleet driver (simnet/lightfleet.py): its tallies
+    # only, never held across a serve call
+    "simnet.lightfleet": 11,
+    # the light-client serving plane (lightserve/): held only around
+    # queue and counter changes, never across store reads or pipeline
+    # submits, but the request path reaches the stores, the payload
+    # cache and the verify plane after release, so it ranks outside them
+    "lightserve.session": 12,
+    "lightserve.cv": 14,
+    "lightserve.planner": 16,
     # consensus core: the state mutex is the outermost product lock;
     # nearly every subsystem below is reachable while it is held
     "consensus.state": 20,
@@ -51,6 +61,13 @@ LOCK_RANKS: dict[str, int] = {
     "state.store": 150,
     "store.kv": 160,
     "pubsub": 170,
+    # p2p edge: the switch's dial set, the peer set and each peer's
+    # data, then a SecretConnection's send and receive halves
+    "p2p.switch": 180,
+    "p2p.peer": 210,
+    "p2p.peer_data": 220,
+    "p2p.conn.send": 250,
+    "p2p.conn.recv": 260,
     # abci / app
     "abci.client": 290,
     "apps.kvstore": 330,
@@ -71,6 +88,7 @@ LOCK_RANKS: dict[str, int] = {
     "sigcache.global": 450,
     "sigcache.stripe": 460,
     "part_set.block_cache": 470,
+    "flowrate": 480,
     # observability rings: leaf-most, recordable from under any of the
     # above.  latledger sits outside flightrec: committing a row under
     # its ring lock may record an EV_SLO_BURN event
@@ -87,6 +105,9 @@ LOCK_RANKS: dict[str, int] = {
 }
 
 MULTI_OK = frozenset({
+    "lightserve.session", "lightserve.cv", "lightserve.planner",
+    "p2p.switch", "p2p.peer", "p2p.peer_data", "p2p.conn.send",
+    "p2p.conn.recv", "flowrate",
     "consensus.state", "consensus.peerstate", "consensus.ticker",
     "evidence.pool", "mempool.clist", "mempool.cache", "pubsub", "autofile",
     "blocksync.pool", "store.blockstore", "state.store", "store.kv",

@@ -411,6 +411,66 @@ class CacheMetrics:
             "same vote share one future).")
 
 
+class P2PMetrics:
+    """p2p/metrics.go: the peers gauge plus per-channel byte counters.
+    The counters count framed wire bytes (length prefix + packet) at
+    the MConnection seam, so both directions of a link agree."""
+
+    def __init__(self, reg: Registry):
+        self.peers = reg.gauge("p2p", "peers", "Number of peers.")
+        self.message_send_bytes_total = reg.counter(
+            "p2p", "message_send_bytes_total",
+            "Wire bytes sent, by channel.", labels=("chID",))
+        self.message_receive_bytes_total = reg.counter(
+            "p2p", "message_receive_bytes_total",
+            "Wire bytes received, by channel.", labels=("chID",))
+
+
+class LightServeMetrics:
+    """The coalescing light-client serving plane (lightserve/): how many
+    sync requests one node is absorbing, how much verify work the
+    coalescer merged away, and the serve-latency distribution (the
+    fleet's light_serve_p99_ms).  Driven by LightServeSession and the
+    request coalescer."""
+
+    def __init__(self, reg: Registry):
+        self.requests_total = reg.counter(
+            "lightserve", "requests_total",
+            "Light-client sync requests accepted (light_sync route "
+            "or in-process session.sync).")
+        self.coalesced_heights_total = reg.counter(
+            "lightserve", "coalesced_heights_total",
+            "Header-verify heights that attached to an already "
+            "in-flight future instead of enqueueing their own verify "
+            "(the cross-request dedupe).")
+        self.headers_served_total = reg.counter(
+            "lightserve", "headers_served_total",
+            "Verified light blocks served to clients (one per path "
+            "height per request).")
+        self.verify_windows_total = reg.counter(
+            "lightserve", "verify_windows_total",
+            "Merged verify windows the serving plane flushed through "
+            "the VerifyPipeline.")
+        self.verify_sigs_total = reg.counter(
+            "lightserve", "verify_sigs_total",
+            "Commit signatures submitted for verification by the "
+            "serving plane (after sigcache partition the pipeline "
+            "dispatches the misses).")
+        self.prefetched_headers_total = reg.counter(
+            "lightserve", "prefetched_headers_total",
+            "Light-block payloads the trust-path planner encoded "
+            "ahead of demand into the serialized payload cache.")
+        self.inflight_heights = reg.gauge(
+            "lightserve", "inflight_heights",
+            "Heights currently holding an unresolved shared verify "
+            "future in the coalescer.")
+        self.serve_seconds = reg.histogram(
+            "lightserve", "serve_seconds",
+            "Per-request serve latency (accept to last header "
+            "handed back), seconds.",
+            buckets=BUCKET_SCHEMES["serve"])
+
+
 class DevprofMetrics:
     """The device-time accounting plane (libs/devprof.py): per-chip
     busy/idle partition (idle attributed by cause — staging /
@@ -498,6 +558,20 @@ def set_cache_metrics(cm: CacheMetrics | None) -> None:
 
 def cache_metrics() -> CacheMetrics | None:
     return _cache_metrics
+
+
+# ... and for the light-client serving plane (lightserve/): sessions
+# are constructed lazily, below any node wiring.
+_lightserve_metrics: LightServeMetrics | None = None
+
+
+def set_lightserve_metrics(lm: LightServeMetrics | None) -> None:
+    global _lightserve_metrics
+    _lightserve_metrics = lm
+
+
+def lightserve_metrics() -> LightServeMetrics | None:
+    return _lightserve_metrics
 
 
 # ... and for the device-time accounting plane (libs/devprof.py): the

@@ -312,6 +312,10 @@ def test_device_hash_knobs_read_as_jax(monkeypatch):
     monkeypatch.setenv("COMETBFT_TPU_DEVICE_HASH_BLOCKS", "5")
     monkeypatch.setenv("COMETBFT_TPU_HASH_THRESHOLD", "77")
     path = Path(cometbft_tpu.__file__).parent
+    # a reload makes new classes (PubKey, ...); modules that imported the
+    # first ones, and libs/tmjson's key registry, still hold those: they
+    # are put back after the test
+    saved = [(mod, dict(vars(mod))) for mod in (ted, thash)]
     try:
         importlib.reload(ted)
         importlib.reload(thash)
@@ -330,6 +334,8 @@ def test_device_hash_knobs_read_as_jax(monkeypatch):
         monkeypatch.undo()
         importlib.reload(ted)
         importlib.reload(thash)
+        for mod, objects in saved:
+            vars(mod).update(objects)
     assert got == tuple(want) == (5, 77)
     assert (ted.DEVICE_HASH_MAX_BLOCKS, thash.DEVICE_HASH_THRESHOLD) == \
         (3, 512)

@@ -60,7 +60,7 @@ def test_ranks_are_the_jax_packages():
         assert jlr.LOCK_RANKS[name] == rank
         assert (name in plr.MULTI_OK) == (name in jlr.MULTI_OK)
     with pytest.raises(ValueError):
-        plr.RankedLock("p2p.switch")          # not a lock of the port
+        plr.RankedLock("p2p.addrbook")        # not a lock of the port
 
 
 def _inversion(lr):

@@ -318,6 +318,18 @@ def _reload_port():
         importlib.reload(mod)
 
 
+def _port_objects():
+    return [(mod, dict(vars(mod))) for mod in (ted, tbatch, tval, mesh)]
+
+
+def _restore(saved):
+    """A reload makes new classes and objects (PubKey, DeferredSigBatch,
+    the A-table cache); modules that imported the first ones, and
+    libs/tmjson's key registry, still hold those: put them back."""
+    for mod, objects in saved:
+        vars(mod).update(objects)
+
+
 @pytest.mark.parametrize(
     "var,setting",
     [(v, s) for v in sorted(ROUTING_VARS) for s in ("unset", "set")]
@@ -333,6 +345,7 @@ def test_routing_variables_read_as_jax(monkeypatch, var, setting):
         monkeypatch.setenv("COMETBFT_TPU_BATCH_THRESHOLD", "5")
     elif setting == "set":
         monkeypatch.setenv(var, ROUTING_VARS[var])
+    saved = _port_objects()
     try:
         _reload_port()
         port = _routing(ted, tbatch, tval, mesh)
@@ -346,6 +359,7 @@ def test_routing_variables_read_as_jax(monkeypatch, var, setting):
     finally:
         monkeypatch.undo()
         _reload_port()
+        _restore(saved)
     assert port == jax_side
     if setting == "unset":
         assert port == {"batch_threshold": 8, "deferred_threshold": 128,

@@ -467,7 +467,7 @@ def test_lockrank_table_is_the_jax_packages():
         assert jlockrank.LOCK_RANKS[name] == rank
         assert (name in lockrank.MULTI_OK) == (name in jlockrank.MULTI_OK)
     with pytest.raises(ValueError):
-        lockrank.RankedLock("p2p.switch")         # no lock of the port
+        lockrank.RankedLock("p2p.addrbook")       # no lock of the port
     assert isinstance(ted.ATableCache()._lock, lockrank.RankedLock)
     assert ted.ATableCache()._lock.name == "ed25519.atable"
     assert tsk.QTableCache()._lock.name == "secp256k1.qtable"
